@@ -1,0 +1,248 @@
+"""PPO (twin of massive_marl_tpu/algos/rl/ppo.py).
+
+One iteration = an nsteps rollout of policy forward + batched env step,
+then GAE and noptepochs x nminibatches clipped-surrogate updates with the
+adaptive-KL step size.  Semantics kept from the reference:
+  * clipped surrogate + clipped value loss;
+  * adaptive KL lr x1.5 / /1.5 inside [1e-5, 1e-2], computed from the
+    pre-step forward's (mean, log_std) and applied on the same step, and
+    raised only when kl > 0;
+  * GAE with (1 - done) masking and advantage normalisation with the
+    population std;
+  * sequential minibatches in the same order every epoch, no shuffle; the
+    KL's old log_std is the value at the start of the update;
+  * obs clipped to +-5 before the policy, actions to +-1 before the env;
+  * the optimizer: global-norm clipping to 1.0, then Adam (b1 0.9, b2 0.999,
+    eps 1e-8) scaled by the adaptive lr.
+The trajectory dict has the reference's layout ([T, E, ...] for obs,
+actions, logp, value, mean, reward, done).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import torch
+
+from massive_marl_tpu_torch import resolve_device
+from massive_marl_tpu_torch.algos import nets
+
+
+@dataclass
+class PPOConfig:
+    nsteps: int = 8
+    noptepochs: int = 5
+    nminibatches: int = 4
+    gamma: float = 0.96
+    lam: float = 0.95
+    cliprange: float = 0.2
+    ent_coef: float = 0.0
+    vf_coef: float = 1.0
+    max_grad_norm: float = 1.0
+    lr: float = 3e-4
+    desired_kl: float = 0.016
+    schedule: str = "adaptive"
+    init_noise_std: float = 0.8
+    hidden: tuple = (1024, 1024, 512)
+    activation: str = "elu"
+    clip_obs: float = 5.0
+    clip_actions: float = 1.0
+    max_iterations: int = 6500
+    use_clipped_value_loss: bool = True
+
+
+@dataclass
+class AdamState:
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+    count: int = 0
+
+
+@dataclass
+class PPOTrainState:
+    opt: AdamState
+    lr: torch.Tensor        # adaptive-KL controlled step size (0-d, on device)
+    env_state: Any          # batched EnvState
+    iteration: int = 0
+
+
+class PPO:
+    """PPO(env, num_envs, cfg).run(max_iterations)."""
+
+    def __init__(self, env, num_envs: int, cfg: PPOConfig | None = None,
+                 seed: int = 0, device=None, print_log: bool = True):
+        self.device = resolve_device(device)
+        if torch.device(env.device) != self.device:
+            raise ValueError(f"env is on {env.device}, trainer on {self.device}")
+        # full-float32 heads and value math on the card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.env = env
+        self.num_envs = num_envs
+        self.cfg = cfg or PPOConfig()
+        self.print_log = print_log
+        self.act_dim = env.num_actions * env.num_agents
+        self.obs_dim = env.num_obs
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        init_gen = torch.Generator()
+        init_gen.manual_seed(seed)
+        self.model = nets.ActorCritic(
+            self.obs_dim, self.act_dim, self.cfg.hidden, self.cfg.hidden,
+            self.cfg.activation, self.cfg.init_noise_std, generator=init_gen).to(self.device)
+        self.state: PPOTrainState | None = None
+        self.last_metrics: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------ setup
+    def init_state(self) -> PPOTrainState:
+        params = list(self.model.parameters())
+        opt = AdamState(mu=[torch.zeros_like(p) for p in params],
+                        nu=[torch.zeros_like(p) for p in params])
+        self.state = PPOTrainState(
+            opt=opt, lr=torch.tensor(self.cfg.lr, device=self.device),
+            env_state=self.env.reset(self.num_envs))
+        return self.state
+
+    # ---------------------------------------------------------------- rollout
+    @torch.no_grad()
+    def rollout_phase(self) -> Dict[str, torch.Tensor]:
+        """nsteps of policy + env; advances state.env_state and returns the
+        trajectory dict."""
+        cfg = self.cfg
+        env_state = self.state.env_state
+        steps = []
+        for _ in range(cfg.nsteps):
+            obs = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
+            mean, value, log_std = self.model(obs)
+            actions = nets.gaussian_sample(mean, log_std, generator=self.generator)
+            logp = nets.gaussian_log_prob(mean, log_std, actions)
+            env_state = self.env.step_batch(
+                env_state, torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions))
+            steps.append(dict(obs=obs, actions=actions, logp=logp, value=value, mean=mean,
+                              reward=env_state.reward,
+                              done=env_state.done.to(torch.float32)))
+        self.state.env_state = env_state
+        return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+
+    # ----------------------------------------------------------------- update
+    def gae(self, traj, last_value):
+        cfg = self.cfg
+        next_values = torch.cat([traj["value"][1:], last_value[None]], dim=0)
+        adv = torch.zeros_like(last_value)
+        advs = []
+        for t in reversed(range(traj["reward"].shape[0])):
+            nd = 1 - traj["done"][t]
+            delta = traj["reward"][t] + nd * cfg.gamma * next_values[t] - traj["value"][t]
+            adv = delta + nd * cfg.gamma * cfg.lam * adv
+            advs.append(adv)
+        adv = torch.stack(advs[::-1])
+        returns = adv + traj["value"]
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8), returns
+
+    def _loss(self, batch, old_log_std):
+        cfg = self.cfg
+        mean, value, log_std = self.model(batch["obs"])
+        logp = nets.gaussian_log_prob(mean, log_std, batch["actions"])
+        ratio = torch.exp(logp - batch["logp"])
+        adv = batch["adv"]
+        surrogate_loss = torch.mean(torch.maximum(
+            -adv * ratio, -adv * torch.clamp(ratio, 1 - cfg.cliprange, 1 + cfg.cliprange)))
+        if cfg.use_clipped_value_loss:
+            v_clip = batch["value"] + torch.clamp(value - batch["value"],
+                                                  -cfg.cliprange, cfg.cliprange)
+            value_loss = torch.mean(torch.maximum((value - batch["returns"]) ** 2,
+                                                  (v_clip - batch["returns"]) ** 2))
+        else:
+            value_loss = torch.mean((batch["returns"] - value) ** 2)
+        entropy = nets.gaussian_entropy(log_std, batch["obs"].shape[:1]).mean()
+        loss = surrogate_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
+        kl = None
+        if cfg.schedule == "adaptive":
+            with torch.no_grad():
+                kl = nets.gaussian_kl(batch["mean"], old_log_std.expand_as(mean),
+                                      mean, log_std.expand_as(mean)).mean()
+        return loss, surrogate_loss.detach(), value_loss.detach(), kl
+
+    def _step(self, grads, lr):
+        """Global-norm clip, Adam moments, p -= lr * update (in place)."""
+        cfg, opt = self.cfg, self.state.opt
+        params = list(self.model.parameters())
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(g_norm < cfg.max_grad_norm, torch.ones_like(g_norm),
+                            cfg.max_grad_norm / g_norm)
+        grads = torch._foreach_mul(grads, scale)
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        opt.count += 1
+        torch._foreach_lerp_(opt.mu, grads, 1 - b1)
+        torch._foreach_mul_(opt.nu, b2)
+        torch._foreach_addcmul_(opt.nu, grads, grads, 1 - b2)
+        denom = torch._foreach_div(opt.nu, 1 - b2 ** opt.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_div(opt.mu, 1 - b1 ** opt.count)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, lr)
+        with torch.no_grad():
+            torch._foreach_sub_(params, upd)
+
+    def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor):
+        """GAE and the epochs of minibatch updates on one trajectory; returns
+        the iteration's metrics (device tensors)."""
+        cfg = self.cfg
+        T, E = traj["reward"].shape
+        n_mb = cfg.nminibatches
+        mb = (T * E) // n_mb
+        with torch.no_grad():
+            _, last_value, _ = self.model(torch.clamp(last_obs, -cfg.clip_obs, cfg.clip_obs))
+            adv, returns = self.gae(traj, last_value)
+        old_log_std = self.model.log_std.detach().clone()
+        flat = dict(obs=traj["obs"].reshape(T * E, -1), actions=traj["actions"].reshape(T * E, -1),
+                    logp=traj["logp"].reshape(T * E), value=traj["value"].reshape(T * E),
+                    mean=traj["mean"].reshape(T * E, -1), adv=adv.reshape(T * E),
+                    returns=returns.reshape(T * E))
+        params = list(self.model.parameters())
+        lr = self.state.lr
+        surr, vals = [], []
+        for _ in range(cfg.noptepochs):
+            for m in range(n_mb):
+                batch = {k: v[m * mb:(m + 1) * mb] for k, v in flat.items()}
+                loss, s_loss, v_loss, kl = self._loss(batch, old_log_std)
+                grads = list(torch.autograd.grad(loss, params))
+                if kl is not None:
+                    lr = torch.where(kl > cfg.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5), lr)
+                    lr = torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
+                                     torch.clamp(lr * 1.5, max=1e-2), lr)
+                self._step(grads, lr)
+                surr.append(s_loss)
+                vals.append(v_loss)
+        self.state.lr = lr
+        self.state.iteration += 1
+        return dict(mean_reward=traj["reward"].mean(),
+                    mean_value_loss=torch.stack(vals).mean(),
+                    mean_surrogate_loss=torch.stack(surr).mean(),
+                    mean_noise_std=nets.dist_std(self.model.log_std.detach()).mean(),
+                    lr=lr, done_frac=traj["done"].mean())
+
+    def train_iter(self):
+        traj = self.rollout_phase()
+        return self.update_phase(traj, self.state.env_state.obs)
+
+    # ---------------------------------------------------------------- driving
+    def run(self, num_learning_iterations: int | None = None, log_interval: int = 1):
+        n_iter = num_learning_iterations or self.cfg.max_iterations
+        if self.state is None:
+            self.init_state()
+        steps_per_iter = self.cfg.nsteps * self.num_envs
+        for it in range(self.state.iteration, n_iter):
+            t0 = time.perf_counter()
+            metrics = self.train_iter()
+            if it % log_interval == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["fps"] = steps_per_iter / (time.perf_counter() - t0)
+                self.last_metrics = m
+                if self.print_log:
+                    print(f"it {it}: rew/step {m['mean_reward']:.3f} vloss {m['mean_value_loss']:.3f} "
+                          f"std {m['mean_noise_std']:.2f} lr {m['lr']:.2e} fps {m['fps']:.0f}",
+                          flush=True)
+        return self.state
