@@ -4,22 +4,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi) and torch's device name;
-  2. build the substep kernel from massive_marl_tpu_torch/ops/csrc/substep.cu
-     with nvcc (sm_90a); print the build seconds and ptxas' register report;
-  3. hold the kernel against its plain PyTorch version at E=4096 envs x 10
-     ants over four state families (feet on the ground, points inside and
-     just outside the push-box, hinges beyond their limits, no box); print
-     the errors per output, the kernel's time (CUDA events, median of 30
+  2. build the kernels from massive_marl_tpu_torch/ops/csrc/ (substep.cu:
+     B1; fused_mlp.cu: B2/B3), one nvcc per source, started together;
+     print the build seconds and ptxas' register and spill report;
+  3. hold B1 against its plain PyTorch version at E=4096 envs x 10 ants
+     over four state families (feet on the ground, points inside and just
+     outside the push-box, hinges beyond their limits, no box); print the
+     errors per output, the kernel's time (CUDA events, median of 30
      launches) beside its bound and the plain version's time;
-  4. TenAnt + PPO at full width (E=4096, hidden 1024-1024-512, nsteps 8,
+  4. hold B2/B3 against their plain versions at the MARL update's three
+     layer shapes (actor layer 0 128->512, hidden 512->512, critic layer 0
+     512->512 with the share obs read by every agent), B = 32,768 rows, for
+     the stacked schedule's N = 10 agents and the sequential schedule's
+     N = 1: every output, with tolerances; each kernel's time beside its
+     bound and its plain version's time, and a bf16 torch.bmm of the same
+     product alone as a note;
+  5. TenAnt + PPO at full width (E=4096, hidden 1024-1024-512, nsteps 8,
      5 epochs x 4 minibatches): 1 warm-up iteration through PPO.run and 3
      timed iterations through PPO.rollout_phase / update_phase;
-     env-steps/s, rollout ms, update ms;
-     finite losses and observations; exactly 24 kernel launches (8 steps x 3
-     substeps) per iteration, counted from 0 just before this phase;
-  5. one more iteration under torch.profiler: device time by kernel group,
-     the device's busy share (full list in build/profile_iteration.txt),
-     and a host-clock breakdown of one rollout step into its parts.
+     env-steps/s, rollout ms, update ms; finite losses and observations;
+     exactly 24 B1 launches (8 steps x 3 substeps) per iteration, counted
+     from 0 just before this phase;
+  6. TenAnt + MAPPO at full width (MarlConfig(): N=10, hidden 512, 3 fused
+     blocks per tower, episode_length 8, 5 epochs, E=4096, the sequential
+     schedule): 1 warm-up iteration through MarlRunner.run and 3 timed
+     iterations through rollout_phase / update_phase; env-steps/s, rollout
+     ms, update ms, peak memory; finite metrics; exactly 24 B1, 300 B2 and
+     300 B3 launches per iteration, counted from 0 just before this phase;
+     then one iteration of the stacked schedule (30 B2, 30 B3) and one of
+     HAPPO (360 B2, 300 B3), checked the same way;
+  7. one PPO and one MAPPO iteration under torch.profiler: device time by
+     kernel group, the device's busy share (full lists in build/), and for
+     PPO a host-clock breakdown of one rollout step into its parts.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -31,12 +47,18 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 E, A = 4096, 10                 # the benchmark's env count; ants per TenAnt env
 KERNEL_REPS, PLAIN_REPS = 30, 5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_OPS_PER_S = 67e12          # H100 SXM FP32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
+MLP_B = 8 * 4096                # episode_length x E rows per agent in the MARL update
+MLP_SHAPES = (("actor layer 0", 128, 512, False), ("hidden", 512, 512, False),
+              ("critic layer 0", 512, 512, True))   # (name, Din, H, share obs)
+MLP_OUTPUTS = ("dx", "dw", "db", "dgamma", "dbeta", "dg0", "db0")
 TOL = {"qpos": (2e-4, 2e-4), "qvel": (5e-3, 5e-3), "wrench": (5e-3, 5e-2),
        "sensors": (5e-3, 5e-2)}
 # elementwise arithmetic and comparison ops counted as operations when the
@@ -149,8 +171,152 @@ def check_kernel(fs, c, ops, label):
     return worst
 
 
+def mlp_operands(N, Din, H, layer0, shared, gen, dev):
+    """Operands of one fused block at the MARL update's shapes.  Layer 0
+    reads feature_norm'd observations (obs 46 or share obs 388, padded) with
+    the feature LayerNorm's affine; a hidden layer reads a bf16 LayerNorm
+    output with ones/zeros.  Weights at the orthogonal init's scale."""
+    import torch
+    from massive_marl_tpu_torch.ops import fused_mlp as fm
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    rows = 1 if shared else N
+    if layer0:
+        x = fm.feature_norm(r(rows, MLP_B, 388 if shared else 46))
+        g0, b0 = 1 + 0.1 * r(N, Din), 0.1 * r(N, Din)
+    else:
+        x = r(rows, MLP_B, Din).to(torch.bfloat16)
+        g0, b0 = torch.ones(N, Din, device=dev), torch.zeros(N, Din, device=dev)
+    if shared:
+        x = x.expand(N, MLP_B, Din)
+    w16 = (r(N, Din, H) * (2.0 / Din) ** 0.5).to(torch.bfloat16)
+    return dict(x=x, w16=w16, b=0.1 * r(N, H), g=1 + 0.1 * r(N, H), be=0.1 * r(N, H),
+                g0=g0, b0=b0, dy=r(N, MLP_B, H).to(torch.bfloat16))
+
+
+def mlp_fwd(fm, d, plain=False):
+    f = fm.fwd_plain if plain else fm.fwd_kernel
+    return f(d["x"], d["w16"], d["b"], d["g"], d["be"], d["g0"], d["b0"])
+
+
+def mlp_bwd(fm, d, a, plain=False):
+    f = fm.bwd_plain if plain else fm.bwd_kernel
+    return f(d["dy"], a, d["x"], d["w16"], d["g"], d["g0"], d["b0"])
+
+
+def mlp_bound(kind, N, Din, H, shared):
+    """(bound ms, "bytes" | "operations", bytes, tensor-core flops) of B2
+    ("fwd") or B3 ("bwd") on [N, MLP_B] rows: each input read once, each
+    output written once; the products at the bf16 tensor-core rate plus the
+    elementwise work (counted from the kernels' code: 2 ops per input
+    column, 12 per hidden column forward, 20 backward) at the FP32 rate."""
+    B = MLP_B
+    x_bytes = (1 if shared else N) * B * Din * 2
+    vec_bytes = N * (3 * H + 2 * Din) * 4
+    if kind == "fwd":
+        nbytes = x_bytes + N * Din * H * 2 + vec_bytes + 2 * N * B * H * 2
+        mm, ew = 2 * N * B * Din * H, N * B * (2 * Din + 12 * H)
+    else:
+        nbytes = (2 * N * B * H * 2 + x_bytes + N * Din * H * 2 + N * (H + 2 * Din) * 4
+                  + N * B * Din * 2 + N * Din * H * 4 + vec_bytes)
+        mm, ew = 4 * N * B * Din * H, N * B * (6 * Din + 20 * H)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (mm / BF16_OPS_PER_S + ew / FP32_OPS_PER_S) * 1e3
+    return (ops_ms, "operations", nbytes, mm) if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes", nbytes, mm)
+
+
+def check_mlp(fm, d, label):
+    """B2 and B3 against their plain versions on the same operands (B3 on
+    the plain version's residual a); returns the worst absolute error of
+    each ({"fwd": ..., "bwd": ...}) and raises on any tolerance break.
+    bf16 outputs: within one bf16 ulp (relative 2^-7) plus 1e-3 of their
+    scale (the product's f32 summation order flips a few roundings); f32
+    sums: 1e-3 relative plus 1e-4 of their scale (summation order over
+    32,768 rows, and for dW, dg0, db0 the one-ulp flips of dh16)."""
+    import torch
+    y, a = mlp_fwd(fm, d)
+    torch.cuda.synchronize()
+    yp, ap = mlp_fwd(fm, d, plain=True)
+    got = mlp_bwd(fm, d, ap)
+    torch.cuda.synchronize()
+    ref = mlp_bwd(fm, d, ap, plain=True)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, g, r in zip(("y", "a") + MLP_OUTPUTS, (y, a) + tuple(got), (yp, ap) + tuple(ref)):
+        g, r = g.float(), r.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: kernel {name} has non-finite values")
+        scale = r.abs().max().item()
+        rtol, atol = (2.0 ** -7, 1e-3 * scale) if name in ("y", "a", "dx") else \
+            (1e-3, 1e-4 * scale)
+        err = (g - r).abs()
+        bad = int((err > atol + rtol * r.abs()).sum())
+        print(f"  {label:22s} {name:6s} max|ref| {scale:.6g}  max abs err "
+              f"{err.max().item():.3e}  differ {(err > 0).float().mean().item():.2e}  "
+              f"breaks {bad} (rtol {rtol:.4g}, atol {atol:.3g})")
+        if bad:
+            raise AssertionError(f"{label}: kernel {name} disagrees with the plain version")
+        kind = "fwd" if name in ("y", "a") else "bwd"
+        worst[kind] = max(worst[kind], err.max().item())
+    return worst
+
+
+def mlp_phase(fm, dev):
+    """Phase 4: B2/B3 against their plain versions at the three layer
+    shapes for N = 10 and N = 1, and their times.  Returns the worst errors
+    and the times of the sequential schedule's hidden layer (N = 1)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    main = {}
+    for N in (10, 1):
+        for name, din, h, shared in MLP_SHAPES:
+            label = f"{name} {din}->{h} N={N}"
+            d = mlp_operands(N, din, h, name != "hidden", shared, gen, dev)
+            err = check_mlp(fm, d, label)
+            worst = {k: max(worst[k], err[k]) for k in worst}
+            _, a = mlp_fwd(fm, d)
+            row = {
+                "fwd": time_cuda_ms(lambda: mlp_fwd(fm, d), 20),
+                "bwd": time_cuda_ms(lambda: mlp_bwd(fm, d, a), 20),
+                "fwd_plain": time_cuda_ms(lambda: mlp_fwd(fm, d, True), PLAIN_REPS, warmup=1),
+                "bwd_plain": time_cuda_ms(lambda: mlp_bwd(fm, d, a, True), PLAIN_REPS, warmup=1),
+                "bmm": time_cuda_ms(lambda: torch.bmm(d["x"], d["w16"]), 20),
+            }
+            for kind in ("fwd", "bwd"):
+                row[kind + "_bound"], row[kind + "_by"], nbytes, mm = \
+                    mlp_bound(kind, N, din, h, shared)
+                print(f"  {label:22s} {'B2' if kind == 'fwd' else 'B3'} "
+                      f"{row[kind]:.4f} ms (median of 20), bound {row[kind + '_bound']:.4f} ms "
+                      f"by {row[kind + '_by']} ({nbytes / 1e6:.1f} MB, {mm / 1e9:.2f} GFLOP "
+                      f"on tensor cores), plain {row[kind + '_plain']:.3f} ms")
+            print(f"  {label:22s} note: bf16 torch.bmm of the product alone {row['bmm']:.4f} ms")
+            if N == 1 and name == "hidden":
+                main = row
+            del d, a
+            torch.cuda.empty_cache()
+    return worst, main
+
+
+def timed_iteration(trainer):
+    """One training iteration (PPO or MARL) on the host clock around
+    synchronised work: (metrics as floats, rollout s, update s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = trainer.rollout_phase()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m = trainer.update_phase(traj, trainer.state.env_state.obs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {k: float(v) for k, v in m.items()}, t1 - t0, t2 - t1
+
+
 # device kernels grouped by what issues them (names as the profiler reports them)
 KERNEL_GROUPS = (("B1 substep kernel", ("substep_kernel",)),
+                 ("B2 dense_elu_ln fwd", ("fwd_kernel",)),
+                 ("B3 dense_elu_ln bwd", ("bwd_rows_kernel", "bwd_dw_kernel",
+                                          "reduce_vec_kernel", "reduce_dw_kernel")),
                  ("GEMM", ("gemm", "nvjet", "cutlass", "gemv")),
                  ("optimizer (foreach)", ("multi_tensor_apply",)),
                  ("reductions", ("reduce_kernel",)),
@@ -159,23 +325,15 @@ KERNEL_GROUPS = (("B1 substep kernel", ("substep_kernel",)),
                  ("other elementwise", ("elementwise", "cross_kernel", "index")))
 
 
-def profile_iteration(ppo, out_dir):
-    """One training iteration under torch.profiler (device time by kernel
-    group and name, the device's busy share), then a host-clock breakdown of
-    one rollout step into its parts; the full list goes to out_dir."""
+def profile_iteration(trainer, path, label):
+    """One training iteration under torch.profiler: device time by kernel
+    group and name and the device's busy share; the full list goes to path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from massive_marl_tpu_torch.ops import fused_substep as fs
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        traj = ppo.rollout_phase()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ppo.update_phase(traj, ppo.state.env_state.obs)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        _, roll_s, upd_s = timed_iteration(trainer)
     by_name, n_kernels = {}, 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -186,21 +344,24 @@ def profile_iteration(ppo, out_dir):
         g = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + ms
     busy_ms = sum(by_name.values())
-    wall_ms = (t2 - t0) * 1e3
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "profile_iteration.txt")
+    wall_ms = (roll_s + upd_s) * 1e3
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as fh:
-        fh.write(f"wall ms {wall_ms:.3f} (rollout {1e3 * (t1 - t0):.3f}, update "
-                 f"{1e3 * (t2 - t1):.3f}); device busy ms {busy_ms:.3f}; kernels {n_kernels}\n")
+        fh.write(f"{label}: wall ms {wall_ms:.3f} (rollout {1e3 * roll_s:.3f}, update "
+                 f"{1e3 * upd_s:.3f}); device busy ms {busy_ms:.3f}; kernels {n_kernels}\n")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
             fh.write(f"{ms:12.3f} ms  {name}\n")
-    print(f"profile (profiler on): wall {wall_ms:.3f} ms (rollout {1e3 * (t1 - t0):.3f}, "
-          f"update {1e3 * (t2 - t1):.3f}), device busy {busy_ms:.3f} ms "
+    print(f"profile {label} (profiler on): wall {wall_ms:.3f} ms (rollout {1e3 * roll_s:.3f}, "
+          f"update {1e3 * upd_s:.3f}), device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernel launches -> {path}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:10.3f} ms  {g}")
 
-    # host clock, profiler off: one rollout step and its parts
+
+def rollout_step_parts(ppo):
+    """Host clock, profiler off: one PPO rollout step and its parts."""
+    import torch
+    from massive_marl_tpu_torch.ops import fused_substep as fs
     env, st = ppo.env, ppo.state.env_state
     g = torch.Generator(device=st.obs.device).manual_seed(0)
     actions = torch.rand(st.obs.shape[0], 80, generator=g, device=st.obs.device) * 2 - 1
@@ -231,6 +392,113 @@ def profile_iteration(ppo, out_dir):
             print(f"  {statistics.median(times[1:]):9.3f} ms  {name}")
 
 
+def build_all(libs):
+    """Build every kernel source at once (one nvcc each, in threads) and
+    print each build's seconds and ptxas' register and spill report."""
+    errors = []
+
+    def build(lib):
+        try:
+            lib.load()
+        except RuntimeError as e:   # re-raised below, in the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(lib,)) for lib in libs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    print(f"build: {len(libs)} sources in {time.perf_counter() - t0:.1f} s wall")
+    for lib in libs:
+        res = lib.build_result
+        print(f"  {res.path}: {res.seconds:.1f} s nvcc")
+        for line in res.log.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "stack frame",
+                                       "error")):
+                print("  ptxas:", line.strip())
+
+
+def marl_phase(dev):
+    """Phase 6: TenAnt + MAPPO (sequential schedule) at full width, then one
+    stacked-schedule and one HAPPO iteration.  Returns the MAPPO run's
+    launch counts of B1, B2 and B3 and the runner for the profile."""
+    import torch
+    from massive_marl_tpu_torch.algos.marl.runner import MarlConfig, MarlRunner
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    from massive_marl_tpu_torch.ops import fused_mlp as fm
+    from massive_marl_tpu_torch.ops import fused_substep as fs
+    counters = (fs.substep_kernel, fm.fwd_kernel, fm.bwd_kernel)
+    counts = lambda: tuple(k.launches for k in counters)
+
+    def make(cfg):
+        env = TenAntEnv(device=dev, seed=0)
+        r = MarlRunner(env, E, cfg, seed=0, device=dev, print_log=False)
+        r.init_state()
+        c = r.cfg
+        blocks = c.ppo_epoch * 2 * (1 + c.layer_n) * (r.N if r.sequential else 1)
+        factor = r.N * 2 * (1 + c.layer_n) if r.is_happo else 0  # old/new logp forwards
+        return r, (c.episode_length * env.spec.substeps, blocks + factor, blocks)
+
+    def check(r, it, m, got, want):
+        obs = r.state.env_state.obs
+        if tuple(obs.shape) != (E, 388) or not torch.isfinite(obs).all():
+            raise AssertionError(f"iteration {it}: bad observations {tuple(obs.shape)}")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"iteration {it}: non-finite metrics {m}")
+        if got != want:
+            raise AssertionError(f"iteration {it}: B1/B2/B3 launches {got}, expected {want}")
+        print(f" rew/step {m['mean_reward']:.3f}, vloss {m['value_loss']:.4f}, "
+              f"policy loss {m['policy_loss']:.5f}, launches B1/B2/B3 {got}")
+
+    def delta(before):
+        return tuple(b - a for a, b in zip(before, counts()))
+
+    runner, per_iter = make(MarlConfig())
+    T = runner.cfg.episode_length
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run(T * E)
+    torch.cuda.synchronize()
+    print(f"  MAPPO it 0 (warm-up, MarlRunner.run): {1e3 * (time.perf_counter() - t0):.1f} ms;",
+          end="")
+    check(runner, 0, runner.last_metrics, counts(), per_iter)
+    rows = []
+    for it in range(1, 1 + 3):
+        before = counts()
+        m, roll_s, upd_s = timed_iteration(runner)
+        rows.append((roll_s, upd_s))
+        print(f"  MAPPO it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms;",
+              end="")
+        check(runner, it, m, delta(before), per_iter)
+    main_counts = counts()
+    roll_ms = statistics.median(r for r, _ in rows) * 1e3
+    upd_ms = statistics.median(u for _, u in rows) * 1e3
+    sps = statistics.median(T * E / (r + u) for r, u in rows)
+    print(f"TenAnt+MAPPO E={E}: {sps:.1f} env-steps/s (median of 3), rollout {roll_ms:.1f} ms, "
+          f"update {upd_ms:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches B1/B2/B3 "
+          f"{main_counts} over 4 iterations")
+
+    for label, cfg in (("MAPPO stacked schedule", MarlConfig(update_schedule="stacked")),
+                       ("HAPPO", MarlConfig.from_cfg_train({}, "happo"))):
+        other, want = make(cfg)
+        timed_iteration(other)       # first iteration: allocator and library warm-up
+        before = counts()
+        m, roll_s, upd_s = timed_iteration(other)
+        print(f"  {label}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms "
+              f"({T * E / (roll_s + upd_s):.1f} env-steps/s, second iteration);", end="")
+        check(other, 2, m, delta(before), want)
+        del other
+        torch.cuda.empty_cache()
+    return main_counts, runner
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -241,7 +509,11 @@ def main() -> int:
     sys.path.insert(0, root)
     from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
     from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    from massive_marl_tpu_torch.ops import fused_mlp as fm
     from massive_marl_tpu_torch.ops import fused_substep as fs
+    # the plain versions' float32 products in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. the card
     dev = torch.device("cuda")
@@ -251,21 +523,15 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- 2. build
-    t0 = time.perf_counter()
-    fs.substep_kernel.load()
-    res = fs.substep_kernel.build_result
-    print(f"build: {res.path} in {res.seconds:.1f} s nvcc ({time.perf_counter() - t0:.1f} s total)")
-    for line in res.log.splitlines():
-        if any(w in line for w in ("registers", "spill", "stack frame", "error")):
-            print("  ptxas:", line.strip())
+    build_all([fs.substep_kernel, fm.fused_mlp_lib])
 
-    # ---- 3. kernel vs plain version at the main path's shapes
+    # ---- 3. B1 vs plain version at the main path's shapes
     env = TenAntEnv(device=dev, seed=0)
     c_box = env.substep_consts
     c_nobox = fs.scene_consts(env.spec._replace(box_sys=None, box_half_extents=None))
     ops = make_states(env, E, 1, dev)
     B = E * A
-    print(f"kernel vs plain at E={E} (B={B} articulations):")
+    print(f"B1 vs plain at E={E} (B={B} articulations):")
     max_err = max(check_kernel(fs, c_box, ops, "box"), check_kernel(fs, c_nobox, ops, "no-box"))
     table = c_box.device_table(dev)
     kernel_ms = time_cuda_ms(lambda: fs.substep_kernel(table, c_box.P, A, *ops), KERNEL_REPS)
@@ -282,7 +548,11 @@ def main() -> int:
           f"{per_ant:.0f} ops/articulation x {B} -> {ops_ms:.4f} ms")
     del ops
 
-    # ---- 4. the main path: TenAnt + PPO at full width
+    # ---- 4. B2/B3 vs plain versions at the MARL update's shapes
+    print(f"B2/B3 vs plain at B={MLP_B} rows per agent:")
+    mlp_err, mlp_main = mlp_phase(fm, dev)
+
+    # ---- 5. TenAnt + PPO at full width
     env = TenAntEnv(device=dev, seed=0)
     ppo = PPO(env, E, PPOConfig(), seed=0, device=dev, print_log=False)
     ppo.init_state()
@@ -311,38 +581,45 @@ def main() -> int:
     rows = []
     for it in range(1, 1 + 3):
         n0 = fs.substep_kernel.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        traj = ppo.rollout_phase()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        m = ppo.update_phase(traj, ppo.state.env_state.obs)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        rows.append((t1 - t0, t2 - t1))
-        print(f"  it {it}: rollout {1e3 * (t1 - t0):.1f} ms, update {1e3 * (t2 - t1):.1f} ms;",
-              end="")
-        check(it, {k: float(v) for k, v in m.items()}, fs.substep_kernel.launches - n0)
-    main_launches = fs.substep_kernel.launches
+        m, roll_s, upd_s = timed_iteration(ppo)
+        rows.append((roll_s, upd_s))
+        print(f"  it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms;", end="")
+        check(it, m, fs.substep_kernel.launches - n0)
+    ppo_launches = fs.substep_kernel.launches
     roll_ms = statistics.median(r for r, _ in rows) * 1e3
     upd_ms = statistics.median(u for _, u in rows) * 1e3
     sps = statistics.median(ppo.cfg.nsteps * E / (r + u) for r, u in rows)
     print(f"TenAnt+PPO E={E}: {sps:.1f} env-steps/s (median of 3), rollout {roll_ms:.1f} ms, "
           f"update {upd_ms:.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"kernel launches {main_launches} over 4 iterations")
+          f"kernel launches {ppo_launches} over 4 iterations")
 
-    # ---- 5. where the time goes
-    profile_iteration(ppo, os.path.join(root, "build"))
+    # ---- 6. TenAnt + MAPPO (then stacked, HAPPO) at full width
+    marl_counts, runner = marl_phase(dev)
+
+    # ---- 7. where the time goes
+    profile_iteration(ppo, os.path.join(root, "build", "profile_iteration.txt"), "PPO")
+    rollout_step_parts(ppo)
+    del ppo
+    profile_iteration(runner, os.path.join(root, "build", "profile_mappo_iteration.txt"),
+                      "MAPPO")
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "ant_substep", "route": "cuda",
-        "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
-        "replaces": "massive_marl_tpu/ops/fused_substep.py:114",
-        "launches": main_launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+    mlp_entry = lambda name, kind, n: {
+        "name": name, "route": "cuda", "source": "massive_marl_tpu_torch/ops/csrc/fused_mlp.cu",
+        "replaces": f"massive_marl_tpu/ops/fused_mlp.py:{46 if kind == 'fwd' else 66}",
+        "launches": n, "max_abs_err": mlp_err[kind], "ms": mlp_main[kind],
+        "plain_ms": mlp_main[kind + "_plain"], "bound_ms": mlp_main[kind + "_bound"],
+        "bound_by": mlp_main[kind + "_by"], "library_ms": None}
+    print(json.dumps({"kernels": [
+        {"name": "ant_substep", "route": "cuda",
+         "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
+         "replaces": "massive_marl_tpu/ops/fused_substep.py:114",
+         "launches": ppo_launches, "max_abs_err": max_err,
+         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": None},
+        mlp_entry("dense_elu_ln_fwd", "fwd", marl_counts[1]),
+        mlp_entry("dense_elu_ln_bwd", "bwd", marl_counts[2])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

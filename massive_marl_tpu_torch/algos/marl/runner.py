@@ -1,0 +1,666 @@
+"""On-policy MARL runner: MAPPO / IPPO / HAPPO (twin of
+massive_marl_tpu/algos/marl/runner.py).
+
+One iteration is an `episode_length` rollout of every agent's policy and
+the batched env step, then per-agent GAE and the updates:
+  * the agent axis is a stacked-parameter dimension: every parameter leaf,
+    optimizer moment and value-normalizer statistic carries a leading N;
+  * the update runs on the fused Dense->ELU->LayerNorm kernels B2/B3
+    (fused_nets.py) when `use_fused_mlp` is on ("auto": on for a CUDA
+    device, off on the CPU; off also when hidden_size % 128, the
+    reference's rule), else on the flax-mirror nets (nets.py).  The rollout
+    always runs on the flax-mirror nets, as in the reference;
+  * schedules: `update_schedule="sequential"` (the default) updates one
+    agent after another, all epochs each: MAPPO/IPPO in agent order, HAPPO
+    over a random permutation with the importance factor
+    prod_j pi_new/pi_old of the agents updated before.  "stacked" updates
+    all MAPPO/IPPO agents jointly with [N, B] kernels; the sum of per-agent
+    losses gives each agent its own gradient (parameters are disjoint), and
+    the optimizer clips each agent's global norm on its own.  Without the
+    fused path MAPPO/IPPO always take the stacked update;
+  * value targets: PopArt (stats updated twice per loss call), ValueNorm
+    (once) or raw returns (nets.norm_targets), denormalized for GAE;
+  * minibatches: `num_mini_batch` contiguous chunks of a fresh permutation
+    per epoch (one permutation shared by the agents of a stacked update),
+    the remainder dropped;
+  * the optimizer is optax.chain(clip_by_global_norm, [add_decayed_weights],
+    adam) applied per agent ("adam" and "fused_adam" are the same math
+    here), optionally with the first moment stored in bf16.
+
+The trajectory dict keeps the reference's [T, E, N, ...] layout (obs
+[T,E,N,obs], share [T,E,share], actions, logp, values, reward, done, bad).
+Random numbers come from the runner's torch.Generator, so a run does not
+replay the reference's threefry stream; the tests feed both packages the
+same trajectory and, for HAPPO, the same agent permutation.
+
+Not ported yet, and each raises NotImplementedError: HATRPO, a device mesh,
+eval, save/restore and logging to a directory (ROADMAP A.8a, A.8d, A.8f).
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import torch
+
+from massive_marl_tpu_torch import resolve_device
+from massive_marl_tpu_torch.algos.marl import fused_nets, nets
+from massive_marl_tpu_torch.ops.fused_mlp import feature_norm
+from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from massive_marl_tpu_torch.wrap.vec_task import split_multi_agent_obs
+
+
+@dataclass
+class MarlConfig:
+    """cfg/happo/config.yaml defaults (= cfg/mappo/config.yaml)."""
+    algorithm_name: str = "mappo"
+    episode_length: int = 8
+    num_env_steps: int = 50_000_000
+    gamma: float = 0.96
+    gae_lambda: float = 0.95
+    clip_param: float = 0.2
+    ppo_epoch: int = 5
+    num_mini_batch: int = 1
+    value_loss_coef: float = 1.0
+    entropy_coef: float = 0.0
+    max_grad_norm: float = 10.0
+    huber_delta: float = 10.0
+    lr: float = 5e-4
+    critic_lr: float = 5e-4
+    opti_eps: float = 1e-5
+    weight_decay: float = 0.0
+    hidden_size: int = 512
+    layer_n: int = 2
+    gain: float = 0.01
+    std_x_coef: float = 1.0
+    std_y_coef: float = 0.5
+    use_centralized_v: bool = True       # False for IPPO
+    kl_threshold: float = 0.016          # HATRPO (not ported yet)
+    ls_step: int = 10
+    accept_ratio: float = 0.5
+    use_gae: bool = True
+    use_popart: bool = True
+    use_valuenorm: bool = False
+    use_proper_time_limits: bool = False
+    use_policy_active_masks: bool = False
+    use_value_active_masks: bool = False
+    use_linear_lr_decay: bool = False
+    use_max_grad_norm: bool = True
+    use_recurrent_policy: bool = False
+    bf16_adam_mu: bool = False           # Adam first moment stored in bf16
+    optimizer: str = "adam"              # "adam" | "fused_adam": the same math here
+    use_huber_loss: bool = True
+    use_clipped_value_loss: bool = True
+    update_schedule: str = "sequential"  # "sequential" | "stacked" (see module doc)
+    data_chunk_length: Any = None
+    use_fused_mlp: Any = "auto"          # "auto": on for a CUDA device, off on the CPU
+    clip_obs: float = 7.0
+    clip_actions: float = 1.0
+    save_interval: int = 200
+    log_interval: int = 1
+    use_eval: bool = False
+    eval_interval: int = 25
+    eval_episodes: int = 32
+
+    # yaml key -> field (the reference's config dict surface)
+    _KEYMAP = {
+        "episode_length": "episode_length", "num_env_steps": "num_env_steps",
+        "gamma": "gamma", "gae_lambda": "gae_lambda", "clip_param": "clip_param",
+        "ppo_epoch": "ppo_epoch", "num_mini_batch": "num_mini_batch",
+        "value_loss_coef": "value_loss_coef", "entropy_coef": "entropy_coef",
+        "max_grad_norm": "max_grad_norm", "huber_delta": "huber_delta",
+        "lr": "lr", "critic_lr": "critic_lr", "opti_eps": "opti_eps",
+        "weight_decay": "weight_decay",
+        "hidden_size": "hidden_size", "layer_n": "layer_N", "gain": "gain",
+        "std_x_coef": "std_x_coef", "std_y_coef": "std_y_coef",
+        "use_centralized_v": "use_centralized_V",
+        "use_recurrent_policy": "use_recurrent_policy",
+        "kl_threshold": "kl_threshold", "ls_step": "ls_step",
+        "accept_ratio": "accept_ratio",
+        "use_gae": "use_gae",
+        "use_popart": "use_popart",
+        "use_valuenorm": "use_valuenorm",
+        "use_proper_time_limits": "use_proper_time_limits",
+        "use_policy_active_masks": "use_policy_active_masks",
+        "use_value_active_masks": "use_value_active_masks",
+        "use_linear_lr_decay": "use_linear_lr_decay",
+        "use_max_grad_norm": "use_max_grad_norm",
+        "use_huber_loss": "use_huber_loss",
+        "use_clipped_value_loss": "use_clipped_value_loss",
+        "data_chunk_length": "data_chunk_length",
+        "use_fused_mlp": "use_fused_mlp",
+        "update_schedule": "update_schedule",
+        "bf16_adam_mu": "bf16_adam_mu",
+        "optimizer": "optimizer",
+        "use_eval": "use_eval", "eval_interval": "eval_interval",
+        "eval_episodes": "eval_episodes",
+        "save_interval": "save_interval", "log_interval": "log_interval",
+    }
+    # keys the reference consumes but that are structural no-ops here
+    _NOOP_KEYS = {
+        "env_name", "algorithm_name", "experiment_name", "run_dir", "seed",
+        "use_render", "n_rollout_threads", "n_eval_rollout_threads",
+        "use_obs_instead_of_state", "use_feature_normalization", "use_orthogonal",
+        "use_ReLU", "actor_gain",
+    }
+    # keys whose non-default values select reference code paths that do not
+    # exist here
+    _UNSUPPORTED_NONDEFAULT = {
+        "use_naive_recurrent_policy": False,
+        "use_single_network": False,
+        "recurrent_N": 1,
+        "stacked_frames": 1,
+    }
+
+    @classmethod
+    def from_cfg_train(cls, cfg_train: dict, algo: str) -> "MarlConfig":
+        kw = {"algorithm_name": algo}
+        for field, yk in cls._KEYMAP.items():
+            if yk in cfg_train and cfg_train[yk] is not None:
+                kw[field] = cfg_train[yk]
+        if algo == "ippo":
+            kw["use_centralized_v"] = False
+        for f in ("lr", "critic_lr", "opti_eps", "weight_decay"):
+            if f in kw:
+                kw[f] = float(kw[f])
+        known = set(cls._KEYMAP.values()) | cls._NOOP_KEYS
+        for yk, v in cfg_train.items():
+            if yk in cls._UNSUPPORTED_NONDEFAULT:
+                if v != cls._UNSUPPORTED_NONDEFAULT[yk] and v is not None:
+                    raise ValueError(
+                        f"cfg key {yk}={v!r} selects a reference code path that "
+                        f"is not implemented here (supported value: "
+                        f"{cls._UNSUPPORTED_NONDEFAULT[yk]!r})")
+            elif yk not in known:
+                warnings.warn(f"unknown MARL cfg key {yk!r} ignored", stacklevel=2)
+        return cls(**kw)
+
+    def norm_mode(self) -> str:
+        """happo/hatrpo: PopArt or nothing (happo_trainer.py:44-47).
+        mappo/ippo: popart > valuenorm > none, not both (mappo_trainer.py:53-61)."""
+        if self.algorithm_name in ("happo", "hatrpo"):
+            return "popart" if self.use_popart else "none"
+        if self.use_popart and self.use_valuenorm:
+            raise ValueError("use_popart and use_valuenorm can not be set True "
+                             "simultaneously (mappo_trainer.py:53-54)")
+        if self.use_popart:
+            return "popart"
+        return "valuenorm" if self.use_valuenorm else "none"
+
+
+def _lead(v, x):
+    """[n] -> broadcastable against x [n, ...]."""
+    return v.reshape(v.shape + (1,) * (x.dim() - v.dim()))
+
+
+@dataclass
+class AdamState:
+    mu: List[torch.Tensor]      # per leaf, agent-stacked
+    nu: List[torch.Tensor]
+    count: List[int]            # steps taken, per agent
+
+
+class ClipAdam:
+    """optax.chain(clip_by_global_norm(clip), [add_decayed_weights(wd)],
+    adam(lr, eps)) + apply_updates, per agent: each agent's gradient is
+    clipped by its own global norm.  Updates the parameters in place."""
+
+    def __init__(self, lr, clip, eps, wd=0.0, mu_bf16=False, b1=0.9, b2=0.999):
+        self.lr, self.clip, self.eps, self.wd = lr, clip, eps, wd
+        self.mu_bf16, self.b1, self.b2 = mu_bf16, b1, b2
+
+    def init(self, leaves, num_agents) -> AdamState:
+        mu_dtype = torch.bfloat16 if self.mu_bf16 else None
+        return AdamState(mu=[torch.zeros_like(p, dtype=mu_dtype) for p in leaves],
+                         nu=[torch.zeros_like(p) for p in leaves], count=[0] * num_agents)
+
+    def step(self, params, grads, mu, nu, count: int):
+        """params/grads/mu/nu: lists of [n, ...] tensors (views into the
+        agent-stacked state); count: the n agents' step count before it."""
+        b1, b2, eps = self.b1, self.b2, self.eps
+        n = grads[0].shape[0]
+        norms = torch._foreach_norm([g[i] for i in range(n) for g in grads])
+        gnorm = torch.linalg.vector_norm(torch.stack(norms).reshape(n, -1), dim=1)
+        # optax clip_by_global_norm: no epsilon; the untaken 0/0 branch is selected away
+        scale = torch.where(gnorm < self.clip, 1.0,
+                            self.clip / torch.where(gnorm == 0.0, 1.0, gnorm))
+        gs = torch._foreach_mul(grads, [_lead(scale, g) for g in grads])
+        if self.wd:
+            torch._foreach_add_(gs, params, alpha=self.wd)
+        c = count + 1
+        bc1, bc2 = 1.0 - b1 ** c, 1.0 - b2 ** c
+        lr = self.lr(count) if callable(self.lr) else self.lr
+        m = [x.float() for x in mu] if self.mu_bf16 else mu
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, gs, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, gs, gs, value=1 - b2)
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_div(m, bc1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, lr)
+        with torch.no_grad():
+            torch._foreach_sub_(params, upd)
+        if self.mu_bf16:
+            for dst, src in zip(mu, m):
+                dst.copy_(src)
+
+
+@dataclass
+class MarlTrainState:
+    actor_params: Dict[str, Any]    # agent-stacked trees
+    critic_params: Dict[str, Any]
+    actor_opt: AdamState
+    critic_opt: AdamState
+    vnorm: nets.ValueNorm           # [N] running stats
+    env_state: Any
+    iteration: int = 0
+    # episode-return bookkeeping (reference runner.py:145-163)
+    ep_ret: torch.Tensor | None = None       # [E] team-reward sum since the last reset
+    last_ep_ret: torch.Tensor | None = None  # [E] return of the last completed episode
+    ep_count: torch.Tensor | None = None     # [E] completed episodes
+
+
+def _nested_mean(groups):
+    """Mean over the outer list of the means of the inner lists (the
+    reference's per-agent, per-epoch loss averages)."""
+    return torch.stack([torch.stack(g).mean() for g in groups]).mean()
+
+
+class MarlRunner:
+    """MarlRunner(env, num_envs, cfg).run(num_env_steps)."""
+
+    def __init__(self, env, num_envs: int, cfg: MarlConfig | None = None, seed: int = 0,
+                 log_dir: str | None = None, print_log: bool = True, mesh=None, device=None):
+        self.device = resolve_device(device)
+        if torch.device(env.device) != self.device:
+            raise ValueError(f"env is on {env.device}, runner on {self.device}")
+        if mesh is not None:
+            raise NotImplementedError("multi-device MARL updates are not ported yet "
+                                      "(ROADMAP A.8f)")
+        if log_dir is not None:
+            raise NotImplementedError("logging and checkpoints to a directory are not "
+                                      "ported yet (ROADMAP A.8d)")
+        c = self.cfg = cfg or MarlConfig()
+        if c.algorithm_name == "hatrpo":
+            raise NotImplementedError("HATRPO (conjugate gradient on the Gauss-Newton "
+                                      "Fisher-vector product) is not ported yet (ROADMAP A.8a)")
+        if c.algorithm_name not in ("mappo", "ippo", "happo"):
+            raise ValueError(f"unknown MARL algorithm {c.algorithm_name!r}")
+        if c.update_schedule not in ("sequential", "stacked"):
+            raise ValueError(f"MarlConfig.update_schedule must be 'sequential' or "
+                             f"'stacked', got {c.update_schedule!r}")
+        if c.optimizer not in ("adam", "fused_adam"):
+            raise ValueError(f"MarlConfig.optimizer must be 'adam' or 'fused_adam', "
+                             f"got {c.optimizer!r}")
+        # full-float32 heads and value math on the card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.env = env
+        self.num_envs = num_envs
+        self.seed = seed
+        self.print_log = print_log
+        self.N = env.num_agents
+        self.act_dim = env.num_actions
+        self.obs_dim = env.num_ant_obs + (env.num_obs - env.num_agents * env.num_ant_obs)
+        self.share_dim = env.num_obs
+        self.critic_in_dim = self.share_dim if c.use_centralized_v else self.obs_dim
+        self.norm_mode = c.norm_mode()
+        self.is_happo = c.algorithm_name == "happo"
+        use_fused = c.use_fused_mlp
+        if use_fused == "auto":
+            use_fused = self.device.type == "cuda"
+        self.use_fused = bool(use_fused) and c.hidden_size % 128 == 0
+        # mappo/ippo on the fused kernels go through the sequential per-agent
+        # schedule unless "stacked" is asked for; agents are independent, so
+        # both give the same parameters
+        self.sequential = self.is_happo or (self.use_fused and c.update_schedule == "sequential")
+        self.actor = nets.MarlActor(act_dim=self.act_dim, hidden_size=c.hidden_size,
+                                    layer_n=c.layer_n, gain=c.gain,
+                                    std_x_coef=c.std_x_coef, std_y_coef=c.std_y_coef)
+        self.critic = nets.MarlCritic(hidden_size=c.hidden_size, layer_n=c.layer_n)
+        self.actor_tx = self._make_tx(c.lr, num_envs)
+        self.critic_tx = self._make_tx(c.critic_lr, num_envs)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.state: MarlTrainState | None = None
+        self.last_metrics: Dict[str, float] = {}
+
+    def _make_tx(self, lr: float, num_envs: int) -> ClipAdam:
+        c = self.cfg
+        if c.use_linear_lr_decay:
+            # update_linear_schedule: lr - lr * episode / episodes, stepped
+            # once per training episode (all its epochs x minibatches share it)
+            per_ep = c.ppo_epoch * max(1, c.num_mini_batch)
+            episodes = max(1, int(c.num_env_steps) // (c.episode_length * num_envs))
+            base = float(lr)
+            lr = lambda count: base * (1.0 - min(count // per_ep, episodes) / episodes)
+        return ClipAdam(lr, clip=c.max_grad_norm if c.use_max_grad_norm else float("inf"),
+                        eps=c.opti_eps, wd=c.weight_decay, mu_bf16=c.bf16_adam_mu)
+
+    # ------------------------------------------------------------------ setup
+    def init_state(self) -> MarlTrainState:
+        g = torch.Generator()
+        g.manual_seed(self.seed)
+        to_dev = lambda tree: tree_map(lambda x: x.to(self.device), tree)
+        ap = to_dev(self.actor.init(self.N, self.obs_dim, g))
+        cp = to_dev(self.critic.init(self.N, self.critic_in_dim, g))
+        E = self.num_envs
+        zeros = lambda dtype=torch.float32: torch.zeros(E, dtype=dtype, device=self.device)
+        self.state = MarlTrainState(
+            actor_params=ap, critic_params=cp,
+            actor_opt=self.actor_tx.init(tree_leaves(ap), self.N),
+            critic_opt=self.critic_tx.init(tree_leaves(cp), self.N),
+            vnorm=nets.ValueNorm.create((self.N,), device=self.device),
+            env_state=self.env.reset(E), iteration=0,
+            ep_ret=zeros(), last_ep_ret=zeros(), ep_count=zeros(torch.int32))
+        return self.state
+
+    def _agent_views(self, obs_buf):
+        """[E, full] -> (per-agent obs [N,E,obs], critic input [N,E,share_or_obs])."""
+        obs = split_multi_agent_obs(obs_buf, self.N, self.env.num_ant_obs).transpose(0, 1)
+        if self.cfg.use_centralized_v:
+            return obs, obs_buf[None].expand(self.N, *obs_buf.shape)
+        return obs, obs
+
+    # ---------------------------------------------------------------- rollout
+    @torch.no_grad()
+    def rollout_phase(self) -> Dict[str, torch.Tensor]:
+        """episode_length steps of every agent's policy and the env step;
+        advances state.env_state and returns the trajectory dict."""
+        cfg, st = self.cfg, self.state
+        E = self.num_envs
+        max_ep_len = getattr(self.env, "max_episode_length", None)
+        env_state = st.env_state
+        steps = []
+        for _ in range(cfg.episode_length):
+            obs_buf = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
+            obs, cin = self._agent_views(obs_buf)
+            mean, std = self.actor.apply(st.actor_params, obs)              # [N,E,act]
+            noise = torch.randn(mean.shape, generator=self.generator, device=self.device)
+            actions = mean + std * noise
+            logp = nets.normal_log_prob(mean, std, actions)                 # [N,E]
+            values = self.critic.apply(st.critic_params, cin)               # [N,E]
+            a_clip = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
+            nxt = self.env.step_batch(env_state, a_clip.transpose(0, 1).reshape(E, -1))
+            if cfg.use_proper_time_limits and max_ep_len is not None:
+                bad = 1.0 - (nxt.done & (nxt.progress >= max_ep_len - 1)).float()
+            else:
+                bad = torch.ones(E, device=self.device)
+            steps.append(dict(obs=obs.transpose(0, 1), share=obs_buf,
+                              actions=actions.transpose(0, 1), logp=logp.t(),
+                              values=values.t(), reward=nxt.reward,
+                              done=nxt.done.float(), bad=bad))
+            env_state = nxt
+        st.env_state = env_state
+        return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+
+    # ----------------------------------------------------------------- update
+    def _gae(self, traj, last_values, vn):
+        """Per-agent GAE on the denormalized values (separated_buffer.py:
+        124-168), then whole-buffer advantage normalization per agent.
+        Returns (adv_norm, returns), each [N, T, E]."""
+        cfg = self.cfg
+        den = (lambda x: vn.denormalize(x)) if self.norm_mode != "none" else (lambda x: x)
+        v = den(traj["values"].permute(2, 0, 1))                          # [N,T,E]
+        last = den(last_values)                                            # [N,E]
+        r, d, bad = traj["reward"], traj["done"], traj["bad"]
+        T = r.shape[0]
+        out = []
+        if cfg.use_gae:
+            nv = torch.cat([v[:, 1:], last[:, None]], dim=1)
+            adv = torch.zeros_like(last)
+            for t in reversed(range(T)):
+                delta = r[t] + cfg.gamma * nv[:, t] * (1 - d[t]) - v[:, t]
+                adv = delta + cfg.gamma * cfg.gae_lambda * (1 - d[t]) * adv
+                if cfg.use_proper_time_limits:
+                    adv = adv * bad[t]
+                out.append(adv)
+            adv = torch.stack(out[::-1], dim=1)
+            returns = adv + v
+        else:
+            ret = last
+            for t in reversed(range(T)):
+                ret = ret * cfg.gamma * (1 - d[t]) + r[t]
+                if cfg.use_proper_time_limits:
+                    ret = ret * bad[t] + (1 - bad[t]) * v[:, t]
+                out.append(ret)
+            returns = torch.stack(out[::-1], dim=1)
+            adv = returns - v
+        flat = adv.reshape(adv.shape[0], -1)
+        mean, std = flat.mean(1), flat.std(1, correction=0)
+        return (adv - _lead(mean, adv)) / (_lead(std, adv) + 1e-5), returns
+
+    def _actor_loss(self, apply, params, mb):
+        """Sum over the batch's agents of the clipped surrogate (times the
+        HAPPO factor) minus the entropy bonus; and the per-agent surrogate."""
+        cfg = self.cfg
+        mean, std = apply(params, mb["obs"])
+        logp = nets.normal_log_prob(mean, std, mb["actions"])             # [n,B]
+        ratio = torch.exp(logp - mb["logp"])
+        surr1 = ratio * mb["adv"]
+        surr2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * mb["adv"]
+        obj = torch.minimum(surr1, surr2)
+        if "factor" in mb:
+            obj = mb["factor"] * obj
+        ent = nets.normal_entropy(std)
+        if cfg.use_policy_active_masks:
+            act = mb["active"]
+            wsum = torch.clamp_min(act.sum(-1), 1e-8)
+            loss_n = -(obj * act).sum(-1) / wsum
+            ent_n = (ent * act).sum(-1) / wsum
+        else:
+            loss_n = -obj.mean(-1)
+            ent_n = ent.mean(-1)
+        return (loss_n - cfg.entropy_coef * ent_n).sum(), loss_n.detach()
+
+    def _critic_loss(self, apply, params, mb, rn_c, rn_o):
+        cfg = self.cfg
+        values = apply(params, mb["cin"])                                   # [n,B]
+        v_clip = mb["values"] + torch.clamp(values - mb["values"],
+                                            -cfg.clip_param, cfg.clip_param)
+        err_o, err_c = rn_o - values, rn_c - v_clip
+        if cfg.use_huber_loss:
+            l_o, l_c = nets.huber(err_o, cfg.huber_delta), nets.huber(err_c, cfg.huber_delta)
+        else:
+            l_o, l_c = 0.5 * err_o ** 2, 0.5 * err_c ** 2
+        l = torch.maximum(l_o, l_c) if cfg.use_clipped_value_loss else l_o
+        if cfg.use_value_active_masks:
+            act = mb["active"]
+            vl_n = (l * act).sum(-1) / torch.clamp_min(act.sum(-1), 1e-8)
+        else:
+            vl_n = l.mean(-1)
+        return (cfg.value_loss_coef * vl_n).sum(), vl_n.detach()
+
+    @staticmethod
+    def _grads(loss_fn, tree):
+        """Gradients of loss_fn(tree) wrt every leaf, and its aux output."""
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(tree)]
+        loss, aux = loss_fn(tree_unflatten(tree, leaves))
+        return list(torch.autograd.grad(loss, leaves)), aux
+
+    def _update_once(self, a_apply, c_apply, ap, ao, cp, co, vn, mb, agents: slice):
+        """One actor step, the value-target update and one critic step for
+        the agents `agents` (views ap/cp/ao/co/vn already cut to them).
+        Returns (vn', actor loss [n], value loss [n])."""
+        agrad, aloss = self._grads(lambda p: self._actor_loss(a_apply, p, mb), ap)
+        st = self.state
+        count = st.actor_opt.count[agents.start]
+        self.actor_tx.step(tree_leaves(ap), agrad, ao.mu, ao.nu, count)
+        vn, rn_c, rn_o = nets.norm_targets(vn, mb["returns"], self.norm_mode)
+        cgrad, vloss = self._grads(lambda p: self._critic_loss(c_apply, p, mb, rn_c, rn_o), cp)
+        self.critic_tx.step(tree_leaves(cp), cgrad, co.mu, co.nu,
+                            st.critic_opt.count[agents.start])
+        for opt in (st.actor_opt, st.critic_opt):
+            opt.count[agents] = [x + 1 for x in opt.count[agents]]
+        return vn, aloss, vloss
+
+    def _epochs(self, a_apply, c_apply, batch, agents: slice, vn):
+        """ppo_epoch x num_mini_batch updates of the agents `agents`.
+        batch leaves are [n, B, ...].  Returns (vn', per-epoch lists of
+        actor and value losses per minibatch, each [n])."""
+        cfg, st = self.cfg, self.state
+        view = lambda tree: tree_map(lambda x: x[agents], tree)
+        ap, cp = view(st.actor_params), view(st.critic_params)
+        opt_view = lambda o: AdamState([m[agents] for m in o.mu], [v[agents] for v in o.nu], [])
+        ao, co = opt_view(st.actor_opt), opt_view(st.critic_opt)
+        nmb = max(1, cfg.num_mini_batch)
+        B = batch["obs"].shape[1]
+        mbs = B // nmb
+        al, vl = [], []
+        for _ in range(cfg.ppo_epoch):
+            if nmb == 1:
+                chunks = [batch]
+            else:
+                idx = torch.randperm(B, generator=self.generator, device=self.device)
+                idx = idx[: nmb * mbs].reshape(nmb, mbs)
+                chunks = [{k: v[:, ix] for k, v in batch.items()} for ix in idx]
+            al.append([])
+            vl.append([])
+            for mb in chunks:
+                vn, a_n, v_n = self._update_once(a_apply, c_apply, ap, ao, cp, co, vn, mb, agents)
+                al[-1].append(a_n)
+                vl[-1].append(v_n)
+        return vn, al, vl
+
+    def _update_nets(self):
+        """(actor apply, critic apply, input normalization) of the update:
+        the fused kernels on feature-normalized inputs, computed once per
+        update because the LayerNorm statistics are parameter-free, or the
+        flax-mirror nets on raw inputs."""
+        cfg = self.cfg
+        if not self.use_fused:
+            return self.actor.apply, self.critic.apply, lambda x: x
+        a_apply = lambda p, o: fused_nets.actor_apply(
+            p, o, std_x_coef=cfg.std_x_coef, std_y_coef=cfg.std_y_coef,
+            layer_n=cfg.layer_n, prenormed=True)
+        c_apply = lambda p, x: fused_nets.critic_apply(p, x, layer_n=cfg.layer_n,
+                                                       prenormed=True)
+        return a_apply, c_apply, feature_norm
+
+    def _stacked(self, data, share):
+        """All agents jointly (MAPPO/IPPO).  Returns the iteration's actor
+        and value loss means."""
+        cfg, st, N = self.cfg, self.state, self.N
+        a_apply, c_apply, norm = self._update_nets()
+        obs = norm(data["obs"])
+        # the shared critic input is read by every agent, not copied N times
+        cin = norm(share)[None].expand(N, *share.shape[:1], -1) if cfg.use_centralized_v \
+            else obs
+        vn, al, vl = self._epochs(a_apply, c_apply, dict(data, obs=obs, cin=cin),
+                                  slice(0, N), st.vnorm)
+        st.vnorm = vn
+        # per step: the mean over agents; the fused joint update reports the
+        # value loss with its coefficient, as the reference's stacked_epochs
+        coef = cfg.value_loss_coef if self.use_fused else 1.0
+        return (_nested_mean([[x.mean() for x in e] for e in al]),
+                _nested_mean([[(coef * x).mean() for x in e] for e in vl]))
+
+    def _sequential(self, data, share, perm):
+        """One agent after another, all epochs each (HAPPO's factor scan;
+        MAPPO/IPPO without the factor).  Returns the loss means."""
+        cfg, st, N = self.cfg, self.state, self.N
+        if perm is None:
+            perm = (torch.randperm(N, generator=self.generator, device=self.device)
+                    if self.is_happo else torch.arange(N))
+        a_apply, c_apply, norm = self._update_nets()
+        share_in = norm(share)[None] if cfg.use_centralized_v else None
+        factor = torch.ones(1, data["obs"].shape[1], device=self.device)
+        alosses, vlosses = [], []
+        for i in (int(i) for i in perm):
+            sl = slice(i, i + 1)
+            batch = {k: v[sl] for k, v in data.items()}
+            batch["obs"] = norm(batch["obs"])
+            batch["cin"] = share_in if share_in is not None else batch["obs"]
+            batch["factor"] = factor
+            ap = tree_map(lambda x: x[sl], st.actor_params)
+            if self.is_happo:
+                with torch.no_grad():
+                    old_logp = nets.normal_log_prob(*a_apply(ap, batch["obs"]), batch["actions"])
+            vn, al, vl = self._epochs(a_apply, c_apply, batch, sl, st.vnorm.index(sl))
+            st.vnorm.assign(sl, vn)
+            if self.is_happo:
+                with torch.no_grad():
+                    new_logp = nets.normal_log_prob(*a_apply(ap, batch["obs"]), batch["actions"])
+                    factor = factor * torch.exp(new_logp - old_logp)
+            alosses.append(_nested_mean([[x.mean() for x in e] for e in al]))
+            vlosses.append(_nested_mean([[x.mean() for x in e] for e in vl]))
+        return torch.stack(alosses).mean(), torch.stack(vlosses).mean()
+
+    def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor, *,
+                     perm=None) -> Dict[str, torch.Tensor]:
+        """GAE and the updates on one trajectory; returns the iteration's
+        metrics (device tensors).  `perm` fixes HAPPO's agent order (the
+        tests use it to replay the reference's permutation)."""
+        cfg, st, N = self.cfg, self.state, self.N
+        T, E = traj["reward"].shape
+        B = T * E
+        with torch.no_grad():
+            _, last_cin = self._agent_views(torch.clamp(last_obs, -cfg.clip_obs, cfg.clip_obs))
+            last_values = self.critic.apply(st.critic_params, last_cin)    # [N,E]
+            adv, returns = self._gae(traj, last_values, st.vnorm)
+        agent_major = lambda x: x.permute(2, 0, 1, *range(3, x.dim())).reshape(N, B, *x.shape[3:])
+        data = dict(obs=agent_major(traj["obs"]), actions=agent_major(traj["actions"]),
+                    logp=agent_major(traj["logp"]), values=agent_major(traj["values"]),
+                    adv=adv.reshape(N, B), returns=returns.reshape(N, B),
+                    active=torch.ones(N, B, device=self.device))
+        share = traj["share"].reshape(B, -1)
+        if self.sequential:
+            aloss, vloss = self._sequential(data, share, perm)
+        else:
+            aloss, vloss = self._stacked(data, share)
+
+        # episode returns (reference runner.py:145-163 accumulator semantics)
+        ep, last, cnt = st.ep_ret, st.last_ep_ret, st.ep_count
+        for r, d in zip(traj["reward"], traj["done"]):
+            ep = ep + r
+            fin = d > 0
+            last = torch.where(fin, ep, last)
+            cnt = cnt + fin.to(torch.int32)
+            ep = torch.where(fin, 0.0, ep)
+        st.ep_ret, st.last_ep_ret, st.ep_count = ep, last, cnt
+        have = cnt > 0
+        st.iteration += 1
+        return dict(mean_reward=traj["reward"].mean(), value_loss=vloss, policy_loss=aloss,
+                    done_frac=traj["done"].mean(),
+                    episode_rewards=torch.where(have, last, 0.0).sum()
+                    / torch.clamp_min(have.sum(), 1),
+                    episodes_done=have.sum())
+
+    def train_iter(self):
+        traj = self.rollout_phase()
+        return self.update_phase(traj, self.state.env_state.obs)
+
+    # ---------------------------------------------------------------- driving
+    def run(self, num_env_steps: int | None = None):
+        steps_per_iter = self.cfg.episode_length * self.num_envs
+        n_iter = max(1, int((num_env_steps or self.cfg.num_env_steps) // steps_per_iter))
+        if self.state is None:
+            self.init_state()
+        for it in range(self.state.iteration, n_iter):
+            t0 = time.perf_counter()
+            metrics = self.train_iter()
+            if it % self.cfg.log_interval == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["fps"] = steps_per_iter / (time.perf_counter() - t0)
+                self.last_metrics = m
+                if self.print_log:
+                    print(f"[{self.cfg.algorithm_name}] it {it}/{n_iter} "
+                          f"rew/step {m['mean_reward']:.3f} vloss {m['value_loss']:.3f} "
+                          f"fps {m['fps']:.0f}", flush=True)
+            if self.cfg.use_eval and self.cfg.eval_interval and it % self.cfg.eval_interval == 0:
+                self.eval()
+        return self.state
+
+    def eval(self, n_episodes: int | None = None, deterministic: bool = True):
+        raise NotImplementedError("MARL eval is not ported yet (ROADMAP A.8d)")
+
+    def save(self, path: str):
+        raise NotImplementedError("MARL checkpoints are not ported yet (ROADMAP A.8d)")
+
+    def restore(self, path: str):
+        raise NotImplementedError("MARL checkpoints are not ported yet (ROADMAP A.8d)")

@@ -31,6 +31,22 @@ def actor_critic_from_flax(params_np) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _tree_to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, np.float32))
+
+
+def marl_params_from_flax(actor_vars, critic_vars):
+    """jax.vmap-initialised MarlActor / MarlCritic variables ({"params":
+    {...}}, every leaf with a leading agent axis N) -> the port's
+    agent-stacked (actor, critic) parameter trees.  Both packages keep
+    flax's layout ([N, in, out] Dense kernels, the same key names), so the
+    leaves carry over as they are; copy them into a runner's state by key
+    (utils.tree.tree_map) to keep its leaf order."""
+    return _tree_to_torch(actor_vars["params"]), _tree_to_torch(critic_vars["params"])
+
+
 SYSTEM_FIELDS = ("parent", "point_body", "point_sensor", "num_sensors",
                  "body_pos", "body_quat", "mass", "com", "inertia",
                  "jnt_axis", "jnt_pos", "jnt_range", "armature", "damping", "gear",

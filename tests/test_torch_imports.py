@@ -33,7 +33,13 @@ def test_no_jax_side_imports(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("chip_smoke.py", "massive_marl_tpu_torch/ops/fused_substep.py",
-                 "massive_marl_tpu_torch/algos/rl/ppo.py", "massive_marl_tpu_torch/cli/train.py"):
+                 "massive_marl_tpu_torch/algos/rl/ppo.py", "massive_marl_tpu_torch/cli/train.py",
+                 "massive_marl_tpu_torch/ops/fused_mlp.py",
+                 "massive_marl_tpu_torch/algos/marl/nets.py",
+                 "massive_marl_tpu_torch/algos/marl/fused_nets.py",
+                 "massive_marl_tpu_torch/algos/marl/runner.py",
+                 "massive_marl_tpu_torch/wrap/vec_task.py",
+                 "massive_marl_tpu_torch/utils/tree.py"):
         assert must in names
     tree = ast.parse("import jax.numpy as jnp\nfrom massive_marl_tpu.phys import mjcf\n"
                      "import importlib\nimportlib.import_module('flax')\n")
