@@ -5,8 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build the kernels from massive_marl_tpu_torch/ops/csrc/ (substep.cu:
-     B1; fused_mlp.cu: B2/B3), one nvcc per source, started together;
-     print the build seconds and ptxas' register and spill report;
+     B1; fused_mlp.cu: B2/B3; fused_tower.cu: B4/B5), one nvcc per source,
+     started together; print the build seconds and ptxas' register and
+     spill report;
   3. hold B1 against its plain PyTorch version at E=4096 envs x 10 ants
      over four state families (feet on the ground, points inside and just
      outside the push-box, hinges beyond their limits, no box); print the
@@ -19,6 +20,11 @@ Phases; any failure raises and the script exits non-zero:
      N = 1: every output, with tolerances; each kernel's time beside its
      bound and its plain version's time, and a bf16 torch.bmm of the same
      product alone as a note;
+  4b. hold B4/B5 against their plain versions at the update's two tower
+     shapes (actor: Din 128 -> 512, critic: Din 512 with the share obs read
+     by every agent; 3 layers), N = 1 and N = 10, B = 32,768, dx both ways;
+     B5 twice for the same bits; each kernel's time beside its bound and
+     its plain version's, and three chained B2 (B3) launches as a note;
   5. TenAnt + PPO at full width (E=4096, hidden 1024-1024-512, nsteps 8,
      5 epochs x 4 minibatches): 1 warm-up iteration through PPO.run and 3
      timed iterations through PPO.rollout_phase / update_phase;
@@ -32,10 +38,18 @@ Phases; any failure raises and the script exits non-zero:
      ms, update ms, peak memory; finite metrics; exactly 24 B1, 300 B2 and
      300 B3 launches per iteration, counted from 0 just before this phase;
      then one iteration of the stacked schedule (30 B2, 30 B3) and one of
-     HAPPO (360 B2, 300 B3), checked the same way;
-  7. one PPO and one MAPPO iteration under torch.profiler: device time by
-     kernel group, the device's busy share (full lists in build/), and for
-     PPO a host-clock breakdown of one rollout step into its parts.
+     HAPPO (360 B2, 300 B3), checked the same way; then MAPPO with
+     FUSED_TOWER=1 (1 warm-up iteration through MarlRunner.run, 1 timed:
+     24 B1, 100 B4, 100 B5, no B2/B3 per iteration); HATRPO
+     (MarlConfig.from_cfg_train({}, "hatrpo"), 1 warm-up iteration through
+     MarlRunner.run, 2 timed) with B2/B3 launches exactly as its conjugate
+     gradients and line searches ran them, inside the range the code
+     allows; and one HATRPO iteration with FUSED_TOWER=1 (30 B2 from the
+     linearizations, no B3, B4/B5 as counted);
+  7. one PPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1 iteration
+     under torch.profiler: device time by kernel group, the device's busy
+     share (full lists in build/), and for PPO a host-clock breakdown of one
+     rollout step into its parts.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -59,6 +73,14 @@ MLP_B = 8 * 4096                # episode_length x E rows per agent in the MARL 
 MLP_SHAPES = (("actor layer 0", 128, 512, False), ("hidden", 512, 512, False),
               ("critic layer 0", 512, 512, True))   # (name, Din, H, share obs)
 MLP_OUTPUTS = ("dx", "dw", "db", "dgamma", "dbeta", "dg0", "db0")
+TOWER_SHAPES = (("actor tower", 128, False), ("critic tower", 512, True))  # (name, Din, share obs)
+TOWER_H, TOWER_L = 512, 3
+# B4/B5 against their plain versions, of the output's scale (y: one bf16 ulp
+# plus this): each layer's one-ulp flips feed the layers after it and,
+# through B5's f32 cotangent, the layers below; the plain version alone with
+# float64 products on the CPU moves y by 1.1e-3 beyond one ulp, dx by 4.7e-3
+# and the sums by 1.0e-3 of their scale (tests/test_torch_fused_tower.py)
+TOWER_TOL = {"y": 3e-3, "dx": 1e-2, "sum": 3e-3}
 TOL = {"qpos": (2e-4, 2e-4), "qvel": (5e-3, 5e-3), "wrench": (5e-3, 5e-2),
        "sensors": (5e-3, 5e-2)}
 # elementwise arithmetic and comparison ops counted as operations when the
@@ -297,6 +319,156 @@ def mlp_phase(fm, dev):
     return worst, main
 
 
+def tower_operands(N, Din, shared, gen, dev):
+    """Operands of a whole tower at the MARL update's shapes: x the
+    feature_norm'd obs (46, padded to 128) or share obs (388, padded to 512,
+    stride 0 over agents), the feature LayerNorm's affine, 3 layers of
+    width 512 at the orthogonal init's scale."""
+    import torch
+    from massive_marl_tpu_torch.ops import fused_mlp as fm
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    x = fm.feature_norm(r(1 if shared else N, MLP_B, 388 if shared else 46))
+    if shared:
+        x = x.expand(N, MLP_B, Din)
+    H, L = TOWER_H, TOWER_L
+    ws16 = [(r(N, Din if li == 0 else H, H) * (2.0 / (Din if li == 0 else H)) ** 0.5)
+            .to(torch.bfloat16) for li in range(L)]
+    return dict(x=x, g0=1 + 0.1 * r(N, Din), b0=0.1 * r(N, Din), ws16=ws16,
+                bs=[0.1 * r(N, H) for _ in range(L)], gs=[1 + 0.1 * r(N, H) for _ in range(L)],
+                bes=[0.1 * r(N, H) for _ in range(L)], dy=r(N, MLP_B, H).to(torch.bfloat16))
+
+
+def tower_args(d):
+    return d["x"], d["g0"], d["b0"], d["ws16"], d["bs"], d["gs"], d["bes"]
+
+
+def tower_bound(kind, N, Din, shared, need_dx=False):
+    """(bound ms, "bytes" | "operations", bytes, tensor-core flops) of B4
+    ("fwd") or B5 ("bwd") on [N, MLP_B] rows: each input read once, each
+    output written once (B4 reads x and the weights and writes y; B5 reads
+    dy too and writes dx if asked and every gradient); the products (B5:
+    the forward it must recompute, since no activation is an input, and
+    the dW and dx products) at the bf16 tensor-core rate plus the
+    elementwise work (as mlp_bound, per layer) at the FP32 rate."""
+    B, H, L = MLP_B, TOWER_H, TOWER_L
+    x_bytes = (1 if shared else N) * B * Din * 2
+    w_elems = N * (Din * H + (L - 1) * H * H)
+    vec_bytes = N * (2 * Din + 3 * L * H) * 4
+    fwd_mm = 2 * N * B * H * (Din + (L - 1) * H)
+    if kind == "fwd":
+        nbytes = x_bytes + w_elems * 2 + vec_bytes + N * B * H * 2
+        mm, ew = fwd_mm, N * B * (2 * Din + 12 * H * L)
+    else:
+        nbytes = (N * B * H * 2 + x_bytes + w_elems * 2 + vec_bytes
+                  + (N * B * Din * 2 if need_dx else 0) + w_elems * 4 + vec_bytes)
+        mm, ew = 3 * fwd_mm, N * B * (8 * Din + 32 * H * L)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (mm / BF16_OPS_PER_S + ew / FP32_OPS_PER_S) * 1e3
+    return (ops_ms, "operations", nbytes, mm) if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes", nbytes, mm)
+
+
+def check_tower(fm, d, label):
+    """B4 and B5 (dx both ways) against their plain versions on the same
+    operands; B5 run twice for the same bits.  Returns the worst absolute
+    error of each ({"fwd": ..., "bwd": ...}) and raises on any break, at
+    TOWER_TOL of the output's scale (y: plus one bf16 ulp)."""
+    import torch
+    args = tower_args(d)
+    y = fm.tower_fwd_kernel(*args)
+    out = fm.tower_bwd_kernel(d["dy"], *args, need_dx=True)
+    again = fm.tower_bwd_kernel(d["dy"], *args, need_dx=False)
+    torch.cuda.synchronize()
+    yp = fm.tower_fwd_plain(*args)
+    ref = fm.tower_bwd_plain(d["dy"], *args, need_dx=True)
+    flat = lambda o: [("dx", o[0])] + [
+        (f"{k}[{li}]", t) for k, ts in zip(("dw", "db", "dgamma", "dbeta"), o[1:5])
+        for li, t in enumerate(ts)] + [("dg0", o[5]), ("db0", o[6])]
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for (name, g), (_, r) in zip([("y", y)] + flat(out), [("y", yp)] + flat(ref)):
+        g, r = g.float(), r.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: kernel {name} has non-finite values")
+        scale = r.abs().max().item()
+        rtol = 2.0 ** -7 if name == "y" else 0.0
+        atol = TOWER_TOL[name if name in ("y", "dx") else "sum"] * scale
+        err = (g - r).abs()
+        bad = int((err > atol + rtol * r.abs()).sum())
+        print(f"  {label:22s} {name:10s} max|ref| {scale:.6g}  max abs err "
+              f"{err.max().item():.3e} ({err.max().item() / max(scale, 1e-30):.2e} of scale)  "
+              f"breaks {bad} (rtol {rtol:.4g}, atol {atol:.3g})")
+        if bad:
+            raise AssertionError(f"{label}: kernel {name} disagrees with the plain version")
+        kind = "fwd" if name == "y" else "bwd"
+        worst[kind] = max(worst[kind], err.max().item())
+    if again[0] is not None or not all(torch.equal(a, b) for (_, a), (_, b) in
+                                       zip(flat(again)[1:], flat(out)[1:])):
+        raise AssertionError(f"{label}: B5 gave other bits on a second run")
+    print(f"  {label:22s} B5 again with need_dx False: the same bits")
+    return worst
+
+
+def tower_phase(fm, dev):
+    """Phase 4b: B4/B5 against their plain versions at the two tower shapes
+    for N = 1 and N = 10, and their times.  Returns the worst errors and the
+    times of the sequential schedule's critic tower (N = 1, need_dx False),
+    the largest tower of the main path."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    main = {}
+    for N in (1, 10):
+        for name, din, shared in TOWER_SHAPES:
+            label = f"{name} {din}->{TOWER_H}x{TOWER_L} N={N}"
+            d = tower_operands(N, din, shared, gen, dev)
+            err = check_tower(fm, d, label)
+            worst = {k: max(worst[k], err[k]) for k in worst}
+            args = tower_args(d)
+            ones = torch.ones(N, TOWER_H, device=dev)
+            zeros = torch.zeros(N, TOWER_H, device=dev)
+            aff = lambda li: (d["g0"], d["b0"]) if li == 0 else (ones, zeros)
+
+            def chain_fwd():
+                h, acts = d["x"], []
+                for li in range(TOWER_L):
+                    h, a = fm.fwd_kernel(h, d["ws16"][li], d["bs"][li], d["gs"][li],
+                                         d["bes"][li], *aff(li))
+                    acts.append((h, a))
+                return acts
+            acts = chain_fwd()
+            ins = [d["x"]] + [h for h, _ in acts[:-1]]
+
+            def chain_bwd():
+                for li in reversed(range(TOWER_L)):
+                    fm.bwd_kernel(d["dy"], acts[li][1], ins[li], d["ws16"][li], d["gs"][li],
+                                  *aff(li), need_dx=li > 0)
+            row = {
+                "fwd": time_cuda_ms(lambda: fm.tower_fwd_kernel(*args), 20),
+                "bwd": time_cuda_ms(lambda: fm.tower_bwd_kernel(d["dy"], *args), 20),
+                "fwd_plain": time_cuda_ms(lambda: fm.tower_fwd_plain(*args), PLAIN_REPS,
+                                          warmup=1),
+                "bwd_plain": time_cuda_ms(lambda: fm.tower_bwd_plain(d["dy"], *args),
+                                          PLAIN_REPS, warmup=1),
+                "chain_fwd": time_cuda_ms(chain_fwd, 20),
+                "chain_bwd": time_cuda_ms(chain_bwd, 20),
+            }
+            for kind in ("fwd", "bwd"):
+                row[kind + "_bound"], row[kind + "_by"], nbytes, mm = \
+                    tower_bound(kind, N, din, shared)
+                print(f"  {label:22s} {'B4' if kind == 'fwd' else 'B5'} "
+                      f"{row[kind]:.4f} ms (median of 20), bound {row[kind + '_bound']:.4f} ms "
+                      f"by {row[kind + '_by']} ({nbytes / 1e6:.1f} MB, {mm / 1e9:.2f} GFLOP "
+                      f"on tensor cores), plain {row[kind + '_plain']:.3f} ms")
+            print(f"  {label:22s} note: three chained B2 {row['chain_fwd']:.4f} ms, "
+                  f"three chained B3 {row['chain_bwd']:.4f} ms (no one PyTorch call computes "
+                  f"the tower)")
+            if N == 1 and name == "critic tower":
+                main = row
+            del d, acts, ins
+            torch.cuda.empty_cache()
+    return worst, main
+
+
 def timed_iteration(trainer):
     """One training iteration (PPO or MARL) on the host clock around
     synchronised work: (metrics as floats, rollout s, update s)."""
@@ -313,10 +485,15 @@ def timed_iteration(trainer):
 
 
 # device kernels grouped by what issues them (names as the profiler reports them)
+# (first match wins: the tower's names contain B2's and B3's)
 KERNEL_GROUPS = (("B1 substep kernel", ("substep_kernel",)),
+                 ("B4 mlp_tower fwd", ("tower_fwd_kernel",)),
+                 ("B5 mlp_tower bwd (row pass, sums)", ("tower_bwd_rows_kernel",
+                                                        "tower_reduce_vec_kernel")),
                  ("B2 dense_elu_ln fwd", ("fwd_kernel",)),
-                 ("B3 dense_elu_ln bwd", ("bwd_rows_kernel", "bwd_dw_kernel",
-                                          "reduce_vec_kernel", "reduce_dw_kernel")),
+                 ("B3 dense_elu_ln bwd (row pass, sums)", ("bwd_rows_kernel",
+                                                           "reduce_vec_kernel")),
+                 ("B3/B5 dW pass", ("bwd_dw_kernel", "reduce_dw_kernel")),
                  ("GEMM", ("gemm", "nvjet", "cutlass", "gemv")),
                  ("optimizer (foreach)", ("multi_tensor_apply",)),
                  ("reductions", ("reduce_kernel",)),
@@ -423,24 +600,47 @@ def build_all(libs):
 
 def marl_phase(dev):
     """Phase 6: TenAnt + MAPPO (sequential schedule) at full width, then one
-    stacked-schedule and one HAPPO iteration.  Returns the MAPPO run's
-    launch counts of B1, B2 and B3 and the runner for the profile."""
+    stacked-schedule and one HAPPO iteration, MAPPO with FUSED_TOWER=1,
+    HATRPO, and HATRPO with FUSED_TOWER=1.  Returns the MAPPO run's launch
+    counts of B1-B3, the FUSED_TOWER=1 MAPPO run's of B4/B5, and the
+    MAPPO, MAPPO FUSED_TOWER=1 and HATRPO runners for the profiles."""
     import torch
     from massive_marl_tpu_torch.algos.marl.runner import MarlConfig, MarlRunner
     from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
     from massive_marl_tpu_torch.ops import fused_mlp as fm
     from massive_marl_tpu_torch.ops import fused_substep as fs
-    counters = (fs.substep_kernel, fm.fwd_kernel, fm.bwd_kernel)
+    from massive_marl_tpu_torch.utils.tree import tree_leaves
+    counters = (fs.substep_kernel, fm.fwd_kernel, fm.bwd_kernel, fm.tower_fwd_kernel,
+                fm.tower_bwd_kernel)
     counts = lambda: tuple(k.launches for k in counters)
 
-    def make(cfg):
+    def make(cfg, tower=False):
         env = TenAntEnv(device=dev, seed=0)
         r = MarlRunner(env, E, cfg, seed=0, device=dev, print_log=False)
         r.init_state()
         c = r.cfg
-        blocks = c.ppo_epoch * 2 * (1 + c.layer_n) * (r.N if r.sequential else 1)
-        factor = r.N * 2 * (1 + c.layer_n) if r.is_happo else 0  # old/new logp forwards
-        return r, (c.episode_length * env.spec.substeps, blocks + factor, blocks)
+        towers = c.ppo_epoch * 2 * (r.N if r.sequential else 1)
+        factor = r.N * 2 if r.is_happo else 0    # old/new logp forwards
+        b1 = c.episode_length * env.spec.substeps
+        if tower:
+            return r, (b1, 0, 0, towers + factor, towers)
+        blocks = 1 + c.layer_n
+        return r, (b1, blocks * (towers + factor), blocks * towers, 0, 0)
+
+    def trpo_want(r, tower=False):
+        """Launches of a HATRPO iteration as its conjugate gradients and
+        line searches ran (runner.trpo_log): per agent the old/new logp
+        forwards, the graph forward, the linearization (always B2), one
+        forward per line-search candidate and ppo_epoch critic forwards;
+        the gradient's backward, one per Fisher-vector product and ppo_epoch
+        critic backwards."""
+        c, blocks = r.cfg, 1 + r.cfg.layer_n
+        b1 = c.episode_length * r.env.spec.substeps
+        fwd = sum(3 + len(g["candidates"]) + c.ppo_epoch for g in r.trpo_log)
+        bwd = sum(1 + g["fvps"] + c.ppo_epoch for g in r.trpo_log)
+        if tower:
+            return b1, blocks * r.N, 0, fwd, bwd
+        return b1, blocks * (fwd + r.N), blocks * bwd, 0, 0
 
     def check(r, it, m, got, want):
         obs = r.state.env_state.obs
@@ -449,9 +649,9 @@ def marl_phase(dev):
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"iteration {it}: non-finite metrics {m}")
         if got != want:
-            raise AssertionError(f"iteration {it}: B1/B2/B3 launches {got}, expected {want}")
+            raise AssertionError(f"iteration {it}: B1-B5 launches {got}, expected {want}")
         print(f" rew/step {m['mean_reward']:.3f}, vloss {m['value_loss']:.4f}, "
-              f"policy loss {m['policy_loss']:.5f}, launches B1/B2/B3 {got}")
+              f"policy loss {m['policy_loss']:.5g}, launches B1/B2/B3/B4/B5 {got}")
 
     def delta(before):
         return tuple(b - a for a, b in zip(before, counts()))
@@ -496,7 +696,76 @@ def marl_phase(dev):
         check(other, 2, m, delta(before), want)
         del other
         torch.cuda.empty_cache()
-    return main_counts, runner
+
+    # MAPPO with the whole-tower kernels
+    os.environ["FUSED_TOWER"] = "1"
+    try:
+        tower, want = make(MarlConfig(), tower=True)
+        for k in counters:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tower.run(T * E)
+        torch.cuda.synchronize()
+        print(f"  MAPPO FUSED_TOWER=1 it 0 (warm-up, MarlRunner.run): "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms;", end="")
+        check(tower, 0, tower.last_metrics, counts(), want)
+        before = counts()
+        m, roll_s, upd_s = timed_iteration(tower)
+        print(f"  MAPPO FUSED_TOWER=1 it 1: rollout {1e3 * roll_s:.1f} ms, update "
+              f"{1e3 * upd_s:.1f} ms ({T * E / (roll_s + upd_s):.1f} env-steps/s);", end="")
+        check(tower, 1, m, delta(before), want)
+        tower_counts = counts()
+    finally:
+        os.environ.pop("FUSED_TOWER")
+
+    # HATRPO (cfg/hatrpo/config.yaml's settings)
+    cfg = MarlConfig.from_cfg_train({}, "hatrpo")
+    trpo, _ = make(cfg)
+    t0 = time.perf_counter()
+    before = counts()
+    trpo.run(T * E)
+    torch.cuda.synchronize()
+    print(f"  HATRPO it 0 (warm-up, MarlRunner.run): {1e3 * (time.perf_counter() - t0):.1f} ms;",
+          end="")
+    check(trpo, 0, trpo.last_metrics, delta(before), trpo_want(trpo))
+    rows = []
+    for it in (1, 2):
+        before = counts()
+        m, roll_s, upd_s = timed_iteration(trpo)
+        rows.append((roll_s, upd_s))
+        got = delta(before)
+        print(f"  HATRPO it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms, "
+              f"{T * E / (roll_s + upd_s):.1f} env-steps/s; Fisher-vector products per agent "
+              f"{[g['fvps'] for g in trpo.trpo_log]}, line-search candidates "
+              f"{[len(g['candidates']) for g in trpo.trpo_log]};", end="")
+        check(trpo, it, m, got, trpo_want(trpo))
+        blocks, n = 1 + cfg.layer_n, trpo.N
+        lo2 = n * blocks * (4 + 1 + cfg.ppo_epoch)
+        hi2 = n * blocks * (4 + cfg.ls_step + cfg.ppo_epoch)
+        lo3, hi3 = n * blocks * (1 + 2 + cfg.ppo_epoch), n * blocks * (1 + 11 + cfg.ppo_epoch)
+        if not (lo2 <= got[1] <= hi2 and lo3 <= got[2] <= hi3):
+            raise AssertionError(f"HATRPO it {it}: B2/B3 {got[1:3]} outside [{lo2}, {hi2}] x "
+                                 f"[{lo3}, {hi3}]")
+    if not all(torch.isfinite(x).all() for x in tree_leaves(trpo.state.actor_params)):
+        raise AssertionError("HATRPO: non-finite actor parameters")
+    sps = statistics.median(T * E / (r + u) for r, u in rows)
+    print(f"TenAnt+HATRPO E={E}: {sps:.1f} env-steps/s (median of 2), rollout "
+          f"{1e3 * statistics.median(r for r, _ in rows):.1f} ms, update "
+          f"{1e3 * statistics.median(u for _, u in rows):.1f} ms (B2/B3 per iteration within "
+          f"[{lo2}, {hi2}] x [{lo3}, {hi3}])")
+
+    # HATRPO with the whole-tower kernels: only the linearizations use B2
+    os.environ["FUSED_TOWER"] = "1"
+    try:
+        before = counts()
+        m, roll_s, upd_s = timed_iteration(trpo)
+        print(f"  HATRPO FUSED_TOWER=1: rollout {1e3 * roll_s:.1f} ms, update "
+              f"{1e3 * upd_s:.1f} ms ({T * E / (roll_s + upd_s):.1f} env-steps/s);", end="")
+        check(trpo, 3, m, delta(before), trpo_want(trpo, tower=True))
+    finally:
+        os.environ.pop("FUSED_TOWER")
+    return main_counts, tower_counts, (runner, tower, trpo)
 
 
 def main() -> int:
@@ -523,7 +792,7 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- 2. build
-    build_all([fs.substep_kernel, fm.fused_mlp_lib])
+    build_all([fs.substep_kernel, fm.fused_mlp_lib, fm.fused_tower_lib])
 
     # ---- 3. B1 vs plain version at the main path's shapes
     env = TenAntEnv(device=dev, seed=0)
@@ -551,6 +820,10 @@ def main() -> int:
     # ---- 4. B2/B3 vs plain versions at the MARL update's shapes
     print(f"B2/B3 vs plain at B={MLP_B} rows per agent:")
     mlp_err, mlp_main = mlp_phase(fm, dev)
+
+    # ---- 4b. B4/B5 vs plain versions at the MARL update's tower shapes
+    print(f"B4/B5 vs plain at B={MLP_B} rows per agent:")
+    tower_err, tower_main = tower_phase(fm, dev)
 
     # ---- 5. TenAnt + PPO at full width
     env = TenAntEnv(device=dev, seed=0)
@@ -594,8 +867,8 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"kernel launches {ppo_launches} over 4 iterations")
 
-    # ---- 6. TenAnt + MAPPO (then stacked, HAPPO) at full width
-    marl_counts, runner = marl_phase(dev)
+    # ---- 6. TenAnt + MAPPO (then stacked, HAPPO, FUSED_TOWER=1, HATRPO) at full width
+    marl_counts, tower_counts, (runner, tower, trpo) = marl_phase(dev)
 
     # ---- 7. where the time goes
     profile_iteration(ppo, os.path.join(root, "build", "profile_iteration.txt"), "PPO")
@@ -603,14 +876,22 @@ def main() -> int:
     del ppo
     profile_iteration(runner, os.path.join(root, "build", "profile_mappo_iteration.txt"),
                       "MAPPO")
+    profile_iteration(trpo, os.path.join(root, "build", "profile_hatrpo_iteration.txt"),
+                      "HATRPO")
+    os.environ["FUSED_TOWER"] = "1"
+    try:
+        profile_iteration(tower, os.path.join(root, "build", "profile_mappo_tower_iteration.txt"),
+                          "MAPPO FUSED_TOWER=1")
+    finally:
+        os.environ.pop("FUSED_TOWER")
 
     print(card)
-    mlp_entry = lambda name, kind, n: {
-        "name": name, "route": "cuda", "source": "massive_marl_tpu_torch/ops/csrc/fused_mlp.cu",
-        "replaces": f"massive_marl_tpu/ops/fused_mlp.py:{46 if kind == 'fwd' else 66}",
-        "launches": n, "max_abs_err": mlp_err[kind], "ms": mlp_main[kind],
-        "plain_ms": mlp_main[kind + "_plain"], "bound_ms": mlp_main[kind + "_bound"],
-        "bound_by": mlp_main[kind + "_by"], "library_ms": None}
+    mlp_entry = lambda name, kind, n, src, line, err, main: {
+        "name": name, "route": "cuda", "source": f"massive_marl_tpu_torch/ops/csrc/{src}",
+        "replaces": f"massive_marl_tpu/ops/fused_mlp.py:{line}",
+        "launches": n, "max_abs_err": err[kind], "ms": main[kind],
+        "plain_ms": main[kind + "_plain"], "bound_ms": main[kind + "_bound"],
+        "bound_by": main[kind + "_by"], "library_ms": None}
     print(json.dumps({"kernels": [
         {"name": "ant_substep", "route": "cuda",
          "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
@@ -618,8 +899,14 @@ def main() -> int:
          "launches": ppo_launches, "max_abs_err": max_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None},
-        mlp_entry("dense_elu_ln_fwd", "fwd", marl_counts[1]),
-        mlp_entry("dense_elu_ln_bwd", "bwd", marl_counts[2])]}))
+        mlp_entry("dense_elu_ln_fwd", "fwd", marl_counts[1], "fused_mlp.cu", 46, mlp_err,
+                  mlp_main),
+        mlp_entry("dense_elu_ln_bwd", "bwd", marl_counts[2], "fused_mlp.cu", 66, mlp_err,
+                  mlp_main),
+        mlp_entry("mlp_tower_fwd", "fwd", tower_counts[3], "fused_tower.cu", 265, tower_err,
+                  tower_main),
+        mlp_entry("mlp_tower_bwd", "bwd", tower_counts[4], "fused_tower.cu", 288, tower_err,
+                  tower_main)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,19 +1,22 @@
-"""On-policy MARL runner: MAPPO / IPPO / HAPPO (twin of
+"""On-policy MARL runner: MAPPO / IPPO / HAPPO / HATRPO (twin of
 massive_marl_tpu/algos/marl/runner.py).
 
 One iteration is an `episode_length` rollout of every agent's policy and
 the batched env step, then per-agent GAE and the updates:
   * the agent axis is a stacked-parameter dimension: every parameter leaf,
     optimizer moment and value-normalizer statistic carries a leading N;
-  * the update runs on the fused Dense->ELU->LayerNorm kernels B2/B3
-    (fused_nets.py) when `use_fused_mlp` is on ("auto": on for a CUDA
+  * the update runs on the fused Dense->ELU->LayerNorm kernels B2/B3, or
+    under FUSED_TOWER=1 on the whole-tower kernels B4/B5 (fused_nets.py),
+    when `use_fused_mlp` is on ("auto": on for a CUDA
     device, off on the CPU; off also when hidden_size % 128, the
     reference's rule), else on the flax-mirror nets (nets.py).  The rollout
     always runs on the flax-mirror nets, as in the reference;
   * schedules: `update_schedule="sequential"` (the default) updates one
     agent after another, all epochs each: MAPPO/IPPO in agent order, HAPPO
     over a random permutation with the importance factor
-    prod_j pi_new/pi_old of the agents updated before.  "stacked" updates
+    prod_j pi_new/pi_old of the agents updated before; HATRPO over the same
+    permutation, with a trust-region actor step (`_trpo_actor_update`) and
+    `ppo_epoch` critic-only epochs.  "stacked" updates
     all MAPPO/IPPO agents jointly with [N, B] kernels; the sum of per-agent
     losses gives each agent its own gradient (parameters are disjoint), and
     the optimizer clips each agent's global norm on its own.  Without the
@@ -31,10 +34,10 @@ The trajectory dict keeps the reference's [T, E, N, ...] layout (obs
 [T,E,N,obs], share [T,E,share], actions, logp, values, reward, done, bad).
 Random numbers come from the runner's torch.Generator, so a run does not
 replay the reference's threefry stream; the tests feed both packages the
-same trajectory and, for HAPPO, the same agent permutation.
+same trajectory and, for HAPPO and HATRPO, the same agent permutation.
 
-Not ported yet, and each raises NotImplementedError: HATRPO, a device mesh,
-eval, save/restore and logging to a directory (ROADMAP A.8a, A.8d, A.8f).
+Not ported yet, and each raises NotImplementedError: a device mesh, eval,
+save/restore and logging to a directory (ROADMAP A.8d, A.8f).
 """
 from __future__ import annotations
 
@@ -77,7 +80,7 @@ class MarlConfig:
     std_x_coef: float = 1.0
     std_y_coef: float = 0.5
     use_centralized_v: bool = True       # False for IPPO
-    kl_threshold: float = 0.016          # HATRPO (not ported yet)
+    kl_threshold: float = 0.016          # HATRPO
     ls_step: int = 10
     accept_ratio: float = 0.5
     use_gae: bool = True
@@ -265,6 +268,17 @@ class MarlTrainState:
     ep_count: torch.Tensor | None = None     # [E] completed episodes
 
 
+def _flat(ts):
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+def _mean_kl(mean, std, mean_o, std_o):
+    """Mean over the batch of KL(N(mean_o, std_o) || N(mean, std)), summed
+    over the action dims."""
+    return torch.mean(torch.sum(torch.log(std / std_o) + (std_o ** 2 + (mean_o - mean) ** 2)
+                                / (2.0 * std ** 2) - 0.5, dim=-1))
+
+
 def _nested_mean(groups):
     """Mean over the outer list of the means of the inner lists (the
     reference's per-agent, per-epoch loss averages)."""
@@ -286,10 +300,7 @@ class MarlRunner:
             raise NotImplementedError("logging and checkpoints to a directory are not "
                                       "ported yet (ROADMAP A.8d)")
         c = self.cfg = cfg or MarlConfig()
-        if c.algorithm_name == "hatrpo":
-            raise NotImplementedError("HATRPO (conjugate gradient on the Gauss-Newton "
-                                      "Fisher-vector product) is not ported yet (ROADMAP A.8a)")
-        if c.algorithm_name not in ("mappo", "ippo", "happo"):
+        if c.algorithm_name not in ("mappo", "ippo", "happo", "hatrpo"):
             raise ValueError(f"unknown MARL algorithm {c.algorithm_name!r}")
         if c.update_schedule not in ("sequential", "stacked"):
             raise ValueError(f"MarlConfig.update_schedule must be 'sequential' or "
@@ -310,7 +321,9 @@ class MarlRunner:
         self.share_dim = env.num_obs
         self.critic_in_dim = self.share_dim if c.use_centralized_v else self.obs_dim
         self.norm_mode = c.norm_mode()
-        self.is_happo = c.algorithm_name == "happo"
+        # HATRPO shares HAPPO's permutation and importance factor
+        self.is_happo = c.algorithm_name in ("happo", "hatrpo")
+        self.is_trpo = c.algorithm_name == "hatrpo"
         use_fused = c.use_fused_mlp
         if use_fused == "auto":
             use_fused = self.device.type == "cuda"
@@ -329,6 +342,10 @@ class MarlRunner:
         self.generator.manual_seed(seed)
         self.state: MarlTrainState | None = None
         self.last_metrics: Dict[str, float] = {}
+        # HATRPO: per agent of the last update, the Fisher-vector products,
+        # the line-search candidates tried (improve, ratio, kl each) and the
+        # index of the accepted one (-1: none, the parameters stay)
+        self.trpo_log: List[Dict[str, Any]] = []
 
     def _make_tx(self, lr: float, num_envs: int) -> ClipAdam:
         c = self.cfg
@@ -483,26 +500,32 @@ class MarlRunner:
         loss, aux = loss_fn(tree_unflatten(tree, leaves))
         return list(torch.autograd.grad(loss, leaves)), aux
 
-    def _update_once(self, a_apply, c_apply, ap, ao, cp, co, vn, mb, agents: slice):
-        """One actor step, the value-target update and one critic step for
-        the agents `agents` (views ap/cp/ao/co/vn already cut to them).
-        Returns (vn', actor loss [n], value loss [n])."""
-        agrad, aloss = self._grads(lambda p: self._actor_loss(a_apply, p, mb), ap)
+    def _update_once(self, a_apply, c_apply, ap, ao, cp, co, vn, mb, agents: slice,
+                     actor: bool = True):
+        """One actor step (skipped when not `actor`: HATRPO's critic-only
+        epochs, which leave the actor's optimizer as it is), the value-target
+        update and one critic step for the agents `agents` (views
+        ap/cp/ao/co/vn already cut to them).  Returns (vn', actor loss [n] or
+        None, value loss [n])."""
         st = self.state
-        count = st.actor_opt.count[agents.start]
-        self.actor_tx.step(tree_leaves(ap), agrad, ao.mu, ao.nu, count)
+        aloss = None
+        if actor:
+            agrad, aloss = self._grads(lambda p: self._actor_loss(a_apply, p, mb), ap)
+            self.actor_tx.step(tree_leaves(ap), agrad, ao.mu, ao.nu,
+                               st.actor_opt.count[agents.start])
         vn, rn_c, rn_o = nets.norm_targets(vn, mb["returns"], self.norm_mode)
         cgrad, vloss = self._grads(lambda p: self._critic_loss(c_apply, p, mb, rn_c, rn_o), cp)
         self.critic_tx.step(tree_leaves(cp), cgrad, co.mu, co.nu,
                             st.critic_opt.count[agents.start])
-        for opt in (st.actor_opt, st.critic_opt):
+        for opt in (st.actor_opt, st.critic_opt) if actor else (st.critic_opt,):
             opt.count[agents] = [x + 1 for x in opt.count[agents]]
         return vn, aloss, vloss
 
-    def _epochs(self, a_apply, c_apply, batch, agents: slice, vn):
-        """ppo_epoch x num_mini_batch updates of the agents `agents`.
-        batch leaves are [n, B, ...].  Returns (vn', per-epoch lists of
-        actor and value losses per minibatch, each [n])."""
+    def _epochs(self, a_apply, c_apply, batch, agents: slice, vn, actor: bool = True):
+        """ppo_epoch x num_mini_batch updates of the agents `agents` (the
+        critic alone when not `actor`).  batch leaves are [n, B, ...].
+        Returns (vn', per-epoch lists of actor and value losses per
+        minibatch, each [n]; the actor's lists stay empty without it)."""
         cfg, st = self.cfg, self.state
         view = lambda tree: tree_map(lambda x: x[agents], tree)
         ap, cp = view(st.actor_params), view(st.critic_params)
@@ -522,8 +545,10 @@ class MarlRunner:
             al.append([])
             vl.append([])
             for mb in chunks:
-                vn, a_n, v_n = self._update_once(a_apply, c_apply, ap, ao, cp, co, vn, mb, agents)
-                al[-1].append(a_n)
+                vn, a_n, v_n = self._update_once(a_apply, c_apply, ap, ao, cp, co, vn, mb,
+                                                 agents, actor)
+                if actor:
+                    al[-1].append(a_n)
                 vl[-1].append(v_n)
         return vn, al, vl
 
@@ -541,6 +566,117 @@ class MarlRunner:
         c_apply = lambda p, x: fused_nets.critic_apply(p, x, layer_n=cfg.layer_n,
                                                        prenormed=True)
         return a_apply, c_apply, feature_norm
+
+    def _trpo_actor_update(self, a_apply, ap, batch) -> torch.Tensor:
+        """HATRPO's actor step for one agent (reference runner.py:725-860):
+        conjugate gradient on the Fisher-vector product (10 iterations,
+        stopping once i > 0 and the residual r.r < 1e-10), the step
+        sqrt(2 kl_threshold / max(sFs, 1e-10)) along its direction s, then a
+        backtracking line search over ls_step scales 0.5**i that takes the
+        first candidate with improve > 0, improve / (expected * scale) >
+        accept_ratio and mean KL <= kl_threshold (none: the parameters stay).
+        The surrogate is factor * ratio * adv, unclipped.  Updates ap (views
+        into the state) in place and returns the actor loss, -surrogate at
+        the old parameters.  One autograd graph of a_apply gives the old
+        outputs, the surrogate, its gradient and the Fisher-vector products'
+        pullbacks (`_fvp`); a line-search candidate's surrogate and KL come
+        from one forward."""
+        cfg = self.cfg
+        leaves = tree_leaves(ap)
+        sizes = [p.numel() for p in leaves]
+        flat0 = torch.cat([p.detach().reshape(-1) for p in leaves])
+        unravel = lambda v: tree_unflatten(
+            ap, [c.view_as(p) for c, p in zip(torch.split(v, sizes), leaves)])
+        obs = batch["obs"]
+
+        def surrogate(mean, std):
+            logp = nets.normal_log_prob(mean, std, batch["actions"])
+            obj = batch["factor"] * torch.exp(logp - batch["logp"]) * batch["adv"]
+            if cfg.use_policy_active_masks:
+                act = batch["active"]
+                return (obj * act).sum() / torch.clamp_min(act.sum(), 1e-8)
+            return obj.mean()
+
+        req = [p.detach().clone().requires_grad_() for p in leaves]
+        mean, std = a_apply(tree_unflatten(ap, req), obs)
+        mean_o, std_o = mean.detach(), std.detach()
+        surr = surrogate(mean, std)
+        g = _flat(torch.autograd.grad(surr, req, retain_graph=True))
+        fvp = self._fvp(ap, obs, req, mean, std)
+        fvps = 0
+        x, r, p = torch.zeros_like(g), g.clone(), g.clone()
+        rs = torch.dot(r, r)
+        for i in range(10):
+            if i > 0 and bool(rs < 1e-10):
+                break
+            Ap = fvp(p)
+            fvps += 1
+            alpha = rs / (torch.dot(p, Ap) + 1e-10)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            rs_n = torch.dot(r, r)
+            p = r + (rs_n / (rs + 1e-10)) * p
+            rs = rs_n
+        sfs = torch.dot(x, fvp(x))
+        fvps += 1
+        full_step = torch.sqrt(2.0 * cfg.kl_threshold / torch.clamp_min(sfs, 1e-10)) * x
+        old_surr = surr.detach()
+        expected = torch.dot(g, full_step)
+        tried, accepted, new = [], -1, flat0
+        with torch.no_grad():
+            for i in range(cfg.ls_step):
+                scale = 0.5 ** i
+                cand = flat0 + scale * full_step
+                m, s = a_apply(unravel(cand), obs)
+                improve = surrogate(m, s) - old_surr
+                ratio = improve / torch.clamp_min(expected * scale, 1e-10)
+                kl = _mean_kl(m, s, mean_o, std_o)
+                ok = (improve > 0) & (ratio > cfg.accept_ratio) & (kl <= cfg.kl_threshold)
+                *vals, take = torch.stack([improve, ratio, kl, ok.float()]).tolist()
+                tried.append(tuple(vals))
+                if take:
+                    accepted, new = i, cand
+                    break
+            for leaf, c in zip(leaves, torch.split(new, sizes)):
+                leaf.copy_(c.view_as(leaf))
+        self.trpo_log.append(dict(fvps=fvps, candidates=tried, accepted=accepted))
+        return -old_surr
+
+    def _fvp(self, ap, obs, req, mean, std):
+        """v -> F v + 0.1 v for one agent at the point (mean, std) =
+        a_apply(ap with leaves req, obs), a graph kept for the pullbacks.
+
+        On the fused path F v is the Gauss-Newton J^T M (J v) with M the
+        diagonal Gaussian output metric (1/std^2 on the mean, 2/std^2 on the
+        std, over B); J v is the tangent of one linearization
+        (fused_nets.actor_linearize, kernel B2) and J^T u the pullback of the
+        graph, so no forward runs inside the products.  Without the fused
+        kernels it is the mean KL's Hessian-vector product, by double
+        backward through the flax-mirror nets."""
+        cfg = self.cfg
+        sizes = [p.numel() for p in req]
+        mean_o, std_o = mean.detach(), std.detach()
+        if self.use_fused:
+            B = mean.shape[1]
+            with torch.no_grad():
+                tangent = fused_nets.actor_linearize(
+                    ap, obs, std_x_coef=cfg.std_x_coef, std_y_coef=cfg.std_y_coef,
+                    layer_n=cfg.layer_n, prenormed=True)[2]
+
+            def fvp(v):
+                with torch.no_grad():
+                    dmean, dstd = tangent(tree_unflatten(
+                        ap, [c.view_as(p) for c, p in zip(torch.split(v, sizes), req)]))
+                    u = (dmean / std_o ** 2 / B, 2.0 * dstd / std_o ** 2 / B)
+                return _flat(torch.autograd.grad((mean, std), req, grad_outputs=u,
+                                                 retain_graph=True)) + 0.1 * v
+            return fvp
+        gkl = torch.autograd.grad(_mean_kl(mean, std, mean_o, std_o), req, create_graph=True)
+
+        def fvp(v):
+            dot = sum((gk.reshape(-1) * vk).sum() for gk, vk in zip(gkl, torch.split(v, sizes)))
+            return _flat(torch.autograd.grad(dot, req, retain_graph=True)) + 0.1 * v
+        return fvp
 
     def _stacked(self, data, share):
         """All agents jointly (MAPPO/IPPO).  Returns the iteration's actor
@@ -561,8 +697,9 @@ class MarlRunner:
                 _nested_mean([[(coef * x).mean() for x in e] for e in vl]))
 
     def _sequential(self, data, share, perm):
-        """One agent after another, all epochs each (HAPPO's factor scan;
-        MAPPO/IPPO without the factor).  Returns the loss means."""
+        """One agent after another, all epochs each (HAPPO's factor scan,
+        HATRPO's with its trust-region actor step; MAPPO/IPPO without the
+        factor).  Returns the loss means."""
         cfg, st, N = self.cfg, self.state, self.N
         if perm is None:
             perm = (torch.randperm(N, generator=self.generator, device=self.device)
@@ -571,6 +708,7 @@ class MarlRunner:
         share_in = norm(share)[None] if cfg.use_centralized_v else None
         factor = torch.ones(1, data["obs"].shape[1], device=self.device)
         alosses, vlosses = [], []
+        self.trpo_log = []
         for i in (int(i) for i in perm):
             sl = slice(i, i + 1)
             batch = {k: v[sl] for k, v in data.items()}
@@ -581,20 +719,26 @@ class MarlRunner:
             if self.is_happo:
                 with torch.no_grad():
                     old_logp = nets.normal_log_prob(*a_apply(ap, batch["obs"]), batch["actions"])
-            vn, al, vl = self._epochs(a_apply, c_apply, batch, sl, st.vnorm.index(sl))
+            if self.is_trpo:
+                aloss = self._trpo_actor_update(a_apply, ap, batch)
+                vn, _, vl = self._epochs(a_apply, c_apply, batch, sl, st.vnorm.index(sl),
+                                         actor=False)
+            else:
+                vn, al, vl = self._epochs(a_apply, c_apply, batch, sl, st.vnorm.index(sl))
+                aloss = _nested_mean([[x.mean() for x in e] for e in al])
             st.vnorm.assign(sl, vn)
             if self.is_happo:
                 with torch.no_grad():
                     new_logp = nets.normal_log_prob(*a_apply(ap, batch["obs"]), batch["actions"])
                     factor = factor * torch.exp(new_logp - old_logp)
-            alosses.append(_nested_mean([[x.mean() for x in e] for e in al]))
+            alosses.append(aloss)
             vlosses.append(_nested_mean([[x.mean() for x in e] for e in vl]))
         return torch.stack(alosses).mean(), torch.stack(vlosses).mean()
 
     def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor, *,
                      perm=None) -> Dict[str, torch.Tensor]:
         """GAE and the updates on one trajectory; returns the iteration's
-        metrics (device tensors).  `perm` fixes HAPPO's agent order (the
+        metrics (device tensors).  `perm` fixes HAPPO's and HATRPO's agent order (the
         tests use it to replay the reference's permutation)."""
         cfg, st, N = self.cfg, self.state, self.N
         T, E = traj["reward"].shape

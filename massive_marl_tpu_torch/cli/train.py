@@ -1,4 +1,4 @@
-"""CLI trainer of the port.  TenAnt with PPO or MAPPO/IPPO/HAPPO:
+"""CLI trainer of the port.  TenAnt with PPO or MAPPO/IPPO/HAPPO/HATRPO:
 
     python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo ppo \
         --num_envs 4096 --max_iterations 100
@@ -8,8 +8,9 @@
 The env and trainers use their built-in defaults, which are the benchmark
 configurations of the JAX package (bench.py: TenAnt with the default
 contact constants; PPO hidden (1024, 1024, 512), nsteps 8, 5 epochs x 4
-minibatches; MARL: MarlConfig(), which equals cfg/mappo/config.yaml, with
-IPPO's decentralized critic).  There is no YAML config loader on the GPU
+minibatches; MARL: MarlConfig(), which equals cfg/mappo/config.yaml and
+cfg/hatrpo/config.yaml, with IPPO's decentralized critic).  FUSED_TOWER=1
+in the environment runs the MARL update's towers on kernels B4/B5.  There is no YAML config loader on the GPU
 host yet.  Runs on CUDA unless --device cpu is given.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", choices=["TenAnt"], default="TenAnt")
-    ap.add_argument("--algo", choices=["ppo", "mappo", "ippo", "happo"], default="ppo")
+    ap.add_argument("--algo", choices=["ppo", "mappo", "ippo", "happo", "hatrpo"], default="ppo")
     ap.add_argument("--num_envs", type=int, default=4096)
     ap.add_argument("--max_iterations", type=int, default=PPOConfig.max_iterations,
                     help="PPO iterations")

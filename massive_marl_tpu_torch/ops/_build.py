@@ -1,12 +1,13 @@
 """Build the CUDA sources of ops/csrc/ at first use.
 
 Each source is compiled by `nvcc` into a shared library with a plain C
-interface under `<repo>/build/kernels/`, named by a hash of the source and
-the flags, so an edit rebuilds and an unchanged source is reused.  Python
-loads it with ctypes.  Nothing here runs at import time.
+interface under `<repo>/build/kernels/`, named by a hash of the source, the
+headers of csrc/ and the flags, so an edit rebuilds and an unchanged source
+is reused.  Python loads it with ctypes.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import shutil
@@ -45,8 +46,11 @@ class BuildResult:
 def build(source: str) -> BuildResult:
     """Compile csrc/<source> unless a library built from the same bytes exists."""
     src = os.path.join(CSRC, source)
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     log_path = out + ".log"

@@ -42,47 +42,9 @@
 // reads each operand once per block, but it does not overlap loads with the
 // products (no cp.async/TMA pipeline, no wgmma): that is a later PR's work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "fused_mlp_common.cuh"
 
 namespace {
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-constexpr float EPS = 1e-6f;  // flax.linen.LayerNorm default epsilon
-constexpr int BM = 64;        // rows per block in the row passes
-constexpr int KT = 32;        // depth of a staged K tile
-constexpr int THREADS = 256;  // 8 warps: 2 along rows x 4 along columns
-constexpr int DC = 128;       // dx columns per chunk in the backward row pass
-constexpr int TD = 64;        // dW tile rows (Din)
-constexpr int TH = 128;       // dW tile columns (H)
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
-
-// Loads 8 consecutive bf16 of x, applies the input affine in f32 and rounds
-// back to bf16 (xt), or gives zeros for a row past the end.
-__device__ __forceinline__ uint4 load_xt8(const bf16* xrow, const float* g0, const float* b0,
-                                          int k, bool valid) {
-  uint4 out = make_uint4(0, 0, 0, 0);
-  if (valid) {
-    uint4 raw = *reinterpret_cast<const uint4*>(xrow + k);
-    const bf16* v = reinterpret_cast<const bf16*>(&raw);
-    bf16* o = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o[j] = __float2bfloat16(__bfloat162float(v[j]) * g0[k + j] + b0[k + j]);
-  }
-  return out;
-}
 
 // ---------------------------------------------------------------------------
 // B2: forward
@@ -368,71 +330,9 @@ size_t rows_smem() {
 }
 
 // ---------------------------------------------------------------------------
-// B3: backward, pass 2 (dW tiles) and pass 3 (fixed-order reductions)
+// B3: backward, pass 2 (dW tiles, fused_mlp_common.cuh) and pass 3
+// (fixed-order reductions)
 // ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-bwd_dw_kernel(int N, int B, int Din, int H, long long sx, int rows_per_split,
-              const bf16* __restrict__ x, const float* __restrict__ g0,
-              const float* __restrict__ b0, const bf16* __restrict__ dh,
-              float* __restrict__ out) {
-  constexpr int LDX = TD + 8, LDD = TH + 8;
-  __shared__ __align__(128) bf16 Xs[KT * LDX];  // [row][din]: xt^T read as col-major A
-  __shared__ __align__(128) bf16 Ds[KT * LDD];  // [row][h]
-  const int n = blockIdx.y, split = blockIdx.z;
-  const int tiles_h = H / TH;
-  const int d0 = (blockIdx.x / tiles_h) * TD, h0 = (blockIdx.x % tiles_h) * TH;
-  const int rbeg = split * rows_per_split;
-  const int rend = min(B, rbeg + rows_per_split);
-  const int tid = threadIdx.x, warp = tid >> 5, wr = warp >> 2, wc = warp & 3;
-  const bf16* xn = x + n * sx;
-  const bf16* dhn = dh + (size_t)n * B * H;
-  const float* g0n = g0 + (size_t)n * Din;
-  const float* b0n = b0 + (size_t)n * Din;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int r0 = rbeg; r0 < rend; r0 += KT) {
-    {  // xt rows: 32 x 64, 8 per thread
-      const int r = tid >> 3, c = (tid & 7) * 8, gr = r0 + r;
-      *reinterpret_cast<uint4*>(Xs + r * LDX + c) =
-          load_xt8(xn + (size_t)(gr < rend ? gr : 0) * Din, g0n, b0n, d0 + c, gr < rend);
-    }
-    for (int idx = tid; idx < KT * TH / 8; idx += THREADS) {
-      const int r = idx / (TH / 8), c = (idx % (TH / 8)) * 8, gr = r0 + r;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (gr < rend) v = *reinterpret_cast<const uint4*>(dhn + (size_t)gr * H + h0 + c);
-      *reinterpret_cast<uint4*>(Ds + r * LDD + c) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], Xs + kk * LDX + wr * 32 + i * 16, LDX);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Ds + kk * LDD + wc * 32 + j * 16, LDD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  float* on = out + ((size_t)split * N + n) * Din * H;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(on + (size_t)(d0 + wr * 32 + i * 16) * H + h0 + wc * 32 + j * 16,
-                              acc[i][j], H, wmma::mem_row_major);
-}
 
 // Sums the row pass's per-block partials [N][nblk][3H + 2Din] in block order.
 __global__ void reduce_vec_kernel(int N, int nblk, int H, int Din, const float* __restrict__ part,
@@ -452,45 +352,17 @@ __global__ void reduce_vec_kernel(int N, int nblk, int H, int Din, const float* 
   else db0[n * Din + c - 3 * H - Din] = s;
 }
 
-// Sums the dW pass's S partial tiles [S][N*Din*H] in split order.
-__global__ void reduce_dw_kernel(long long total, int S, const float* __restrict__ part,
-                                 float* __restrict__ dw) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int k = 0; k < S; ++k) s += part[k * total + i];
-  dw[i] = s;
-}
-
-// Row splits of the dW pass: enough blocks for two per SM, each split a
-// multiple of KT rows.
-void dw_split(int N, int B, int Din, int H, int* S, int* rows) {
-  const int tiles = (Din / TD) * (H / TH) * N;
-  int s = (2 * 132 + tiles - 1) / tiles;
-  const int max_s = (B + 1023) / 1024;  // at least 1024 rows per split
-  s = s < 1 ? 1 : (s > max_s ? max_s : s);
-  s = s > 16 ? 16 : s;
-  if (s < 1) s = 1;
-  int r = (B + s - 1) / s;
-  r = (r + KT - 1) / KT * KT;
-  *S = (B + r - 1) / r;
-  if (*S < 1) *S = 1;
-  *rows = r;
-}
-
 struct Scratch {
   size_t dh, part, dwp, total;
 };
 
 Scratch scratch_layout(int N, int B, int Din, int H) {
-  int S, rows;
-  dw_split(N, B, Din, H, &S, &rows);
   const size_t nblk = (B + BM - 1) / BM;
   Scratch s;
   s.dh = 0;
   s.part = align256((size_t)N * B * H * 2);
   s.dwp = s.part + align256(nblk * N * (3 * H + 2 * Din) * 4);
-  s.total = s.dwp + (S > 1 ? align256((size_t)S * N * Din * H * 4) : 0);
+  s.total = s.dwp + dw_partial_bytes(N, B, Din, H);
   return s;
 }
 
@@ -499,7 +371,8 @@ int launch_fwd(int N, int B, int Din, long long sx, const void* x, const void* w
                const void* b, const void* g, const void* be, const void* g0, const void* b0,
                void* y, void* a, cudaStream_t st) {
   const size_t smem = fwd_smem<HK>();
-  cudaFuncSetAttribute(fwd_kernel<HK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int err = allow_smem(fwd_kernel<HK>, smem);
+  if (err != 0) return err;
   dim3 grid((B + BM - 1) / BM, N);
   fwd_kernel<HK><<<grid, THREADS, smem, st>>>(
       B, Din, sx, (const bf16*)x, (const bf16*)w, (const float*)b, (const float*)g,
@@ -512,8 +385,8 @@ int launch_rows(int N, int B, int Din, long long sx, const void* dy, const void*
                 const void* x, const void* w, const void* g, const void* g0, void* dx, void* dh,
                 void* part, cudaStream_t st) {
   const size_t smem = rows_smem<HK>();
-  cudaFuncSetAttribute(bwd_rows_kernel<HK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  const int err = allow_smem(bwd_rows_kernel<HK>, smem);
+  if (err != 0) return err;
   dim3 grid((B + BM - 1) / BM, N);
   bwd_rows_kernel<HK><<<grid, THREADS, smem, st>>>(
       B, Din, sx, (const bf16*)dy, (const bf16*)a, (const bf16*)x, (const bf16*)w,
@@ -571,24 +444,13 @@ extern "C" int dense_elu_ln_bwd(int N, int B, int Din, int H, long long sx, cons
   }
   if (err != 0) return err;
 
-  int S, rows;
-  dw_split(N, B, Din, H, &S, &rows);
-  float* dw_out = S > 1 ? (float*)(base + lay.dwp) : (float*)dw;
-  dim3 grid_dw((Din / TD) * (H / TH), N, S);
-  bwd_dw_kernel<<<grid_dw, THREADS, 0, st>>>(N, B, Din, H, sx, rows, (const bf16*)x,
-                                             (const float*)g0, (const float*)b0,
-                                             (const bf16*)dh, dw_out);
-  err = (int)cudaGetLastError();
+  err = launch_dw<true>(N, B, Din, H, sx, (const bf16*)x, (const float*)g0, (const float*)b0,
+                        (const bf16*)dh, (float*)dw, (float*)(base + lay.dwp), st);
   if (err != 0) return err;
 
   const int nblk = (B + BM - 1) / BM;
   const int nvec = N * (3 * H + 2 * Din);
   reduce_vec_kernel<<<(nvec + THREADS - 1) / THREADS, THREADS, 0, st>>>(
       N, nblk, H, Din, part, (float*)db, (float*)dg, (float*)dbe, (float*)dg0, (float*)db0);
-  err = (int)cudaGetLastError();
-  if (err != 0 || S == 1) return err;
-  const long long total = (long long)N * Din * H;
-  reduce_dw_kernel<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      total, S, (const float*)(base + lay.dwp), (float*)dw);
   return (int)cudaGetLastError();
 }

@@ -183,6 +183,24 @@ def test_mlp_base_stacked_matches_jax(stacked_nets):
         _assert_head(got, ref, f"MLPBase at in={x.shape[-1]}")
 
 
+def test_mlp_base_stacked_jvp_matches_jax(stacked_nets):
+    """The parameter-directional tangent of the critic's tower (share obs,
+    so the padded feature-LayerNorm tangent is exercised) along a
+    numpy-made tangent: h within 2e-2 of its scale, as the towers; dh within
+    5e-2 of its scale, tests/test_fused_mlp.py:236-238's tolerance."""
+    s = stacked_nets
+    rng = np.random.default_rng(6)
+    base = s["cv"]["params"]["MLPBase_0"]
+    tangent = jax.tree_util.tree_map(
+        lambda x: (0.05 * rng.normal(size=x.shape)).astype(np.float32), base)
+    hj, dhj = j_fm.mlp_base_stacked_jvp(base, tangent, jnp.asarray(s["share"]), interpret=True)
+    dt, _ = marl_params_from_flax({"params": tangent}, {"params": {}})
+    hp, dhp = p_fm.mlp_base_stacked_jvp(s["pc"]["MLPBase_0"], dt, torch.from_numpy(s["share"]))
+    _assert_head(hp, hj, "h")
+    np.testing.assert_allclose(_f32(dhp), _f32(dhj), rtol=0,
+                               atol=5e-2 * np.abs(_f32(dhj)).max(), err_msg="dh")
+
+
 def test_fused_actor_and_critic_apply_match_jax(stacked_nets):
     s = stacked_nets
     mj, sj = j_fused_nets.actor_apply(s["av"], jnp.asarray(s["obs"]), interpret=True)

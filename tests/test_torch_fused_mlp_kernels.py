@@ -3,7 +3,8 @@ device rule.
 
 CPU tests: a CPU tensor takes the plain version and never touches the
 launch counters; the kernel wrappers refuse CPU tensors; DenseEluLN's
-backward is the plain backward; the FUSED_TOWER branch is not ported.
+backward is the plain backward, and so is the FUSED_TOWER branch's
+(tests/test_torch_fused_tower.py has the tower's own tests).
 
 Tests marked `cuda` hold the kernels against their plain versions on the
 card (ragged row counts, every hidden width the kernels take, a shared
@@ -21,6 +22,7 @@ their scale (summation order over up to B rows).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from massive_marl_tpu_torch.ops import fused_mlp as fm
 
@@ -75,10 +77,37 @@ def test_autograd_function_uses_the_plain_backward():
         assert torch.equal(got, want)
 
 
-def test_fused_tower_branch_is_not_ported(monkeypatch):
+def test_fused_tower_branch_uses_the_plain_tower_backward(monkeypatch):
+    """FUSED_TOWER=1: mlp_base_stacked's gradients are MlpTower's, that is
+    tower_bwd_plain's on CPU tensors, bit for bit; the x gradient is None."""
     monkeypatch.setenv("FUSED_TOWER", "1")
-    with pytest.raises(NotImplementedError, match="B.3"):
-        fm.mlp_base_stacked({}, torch.zeros(1, 8, 46))
+    g = torch.Generator().manual_seed(4)
+    r = lambda *s: torch.randn(*s, generator=g)
+    N, B, H = 2, 16, 128
+    params = {"LayerNorm_0": {"scale": 1 + 0.1 * r(N, 46), "bias": 0.1 * r(N, 46)}}
+    for i in range(3):
+        params[f"Dense_{i}"] = {"kernel": 0.1 * r(N, 46 if i == 0 else H, H), "bias": 0.1 * r(N, H)}
+        params[f"LayerNorm_{i + 1}"] = {"scale": 1 + 0.1 * r(N, H), "bias": 0.1 * r(N, H)}
+    x, dy = fm.feature_norm(r(N, B, 46)).requires_grad_(), r(N, B, H).to(BF16)
+    leaves = [t.requires_grad_() for d in params.values() for t in d.values()]
+    y = fm.mlp_base_stacked(params, x, prenormed=True)
+    grads = torch.autograd.grad((y.float() * dy.float()).sum(), [x] + leaves, allow_unused=True)
+    assert grads[0] is None
+    got = dict(zip([(a, b) for a, d in params.items() for b in d], grads[1:]))
+    ws16 = [F.pad(params[f"Dense_{i}"]["kernel"], (0, 0, 0, 82 if i == 0 else 0)).to(BF16)
+            for i in range(3)]
+    g0, b0 = (F.pad(params["LayerNorm_0"][k], (0, 82)) for k in ("scale", "bias"))
+    _, dws, dbs, dgs, dbes, dg0, db0 = fm.tower_bwd_plain(
+        dy, x, g0, b0, ws16, [params[f"Dense_{i}"]["bias"] for i in range(3)],
+        [params[f"LayerNorm_{i + 1}"]["scale"] for i in range(3)],
+        [params[f"LayerNorm_{i + 1}"]["bias"] for i in range(3)])
+    assert torch.equal(got[("LayerNorm_0", "scale")], dg0[:, :46])
+    assert torch.equal(got[("LayerNorm_0", "bias")], db0[:, :46])
+    for i in range(3):
+        assert torch.equal(got[(f"Dense_{i}", "kernel")], dws[i][:, :46 if i == 0 else H])
+        assert torch.equal(got[(f"Dense_{i}", "bias")], dbs[i])
+        assert torch.equal(got[(f"LayerNorm_{i + 1}", "scale")], dgs[i])
+        assert torch.equal(got[(f"LayerNorm_{i + 1}", "bias")], dbes[i])
 
 
 @pytest.fixture

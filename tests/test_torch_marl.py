@@ -1,13 +1,15 @@
-"""The port's MARL runner (MAPPO/IPPO/HAPPO on TenAnt) against the JAX
-package on the CPU.
+"""The port's MARL runner (MAPPO/IPPO/HAPPO/HATRPO on TenAnt) against the
+JAX package on the CPU.
 
 One trajectory is made with numpy from a seed (obs, share obs, actions,
 rewards, dones; log-probs and values from the flax nets at the bridged
 parameters) and goes through both update phases: JAX's
 `MarlRunner(..., use_fused_mlp=True)._make_train_iter().update_phase` with
 its Pallas kernels in interpret mode, and the port's `update_phase` with the
-kernels' plain versions.  HAPPO's agent order is JAX's permutation,
-recomputed from the same key and handed to the port.
+kernels' plain versions.  HAPPO's and HATRPO's agent order is JAX's
+permutation, recomputed from the same key and handed to the port.  One case
+runs MAPPO with FUSED_TOWER=1 on both sides (the whole-tower kernels' plain
+versions against the Pallas tower in interpret mode).
 
 Tolerances and why:
   * the first minibatch's gradients: 6e-2 of each leaf's scale, as
@@ -19,7 +21,15 @@ Tolerances and why:
   * parameters after 5 epochs of Adam: Adam moves each weight by about lr
     per step whatever the gradient's size, so a bf16 gradient near 0 may
     take the other sign: every weight within 3 * lr * ppo_epoch, the median
-    difference below lr / 10.
+    difference below lr / 10;
+  * HATRPO's actor step (new - old) per agent: the norm of the difference
+    within 1% of the norm of JAX's step (0.02-0.18% seen), what a
+    10-iteration conjugate gradient on Fisher-vector products with bf16
+    activations keeps of the two packages' summation-order noise.  The line
+    search's choice of candidate is discrete; the test prints each agent's
+    margins (the KL's is ~1e-4 below kl_threshold at the accepted step);
+  * the manual JVP at tests/test_fused_mlp.py:234-240's tolerances, the
+    Gauss-Newton Fisher-vector product at 8e-2 of its scale (:295-296).
 """
 import dataclasses
 
@@ -39,6 +49,7 @@ from massive_marl_tpu_torch.algos.marl import runner as p_runner
 from massive_marl_tpu_torch.algos.marl.runner import MarlConfig as PConfig
 from massive_marl_tpu_torch.algos.marl.runner import MarlRunner as PRunner
 from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv as PTenAnt
+from massive_marl_tpu_torch.ops import fused_mlp as p_fm
 from massive_marl_tpu_torch.utils.bridge import marl_params_from_flax
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -160,21 +171,24 @@ def tree_leaves_like(ref, tree):
     return [leaf for _, leaf in _named_leaves(tree_map(lambda _, x: x, ref, tree))]
 
 
-@pytest.mark.parametrize("algo,schedule", [("mappo", "sequential"), ("mappo", "stacked"),
-                                           ("ippo", "sequential"), ("happo", "sequential")])
-def test_update_phase_matches_jax(envs, cases, algo, schedule):
+def _run_both(envs, cases, algo, **kw):
+    """One update phase of each package on the same trajectory: (JAX
+    state, JAX metrics, port runner, port metrics, port parameters before)."""
     jenv, penv = envs
     ts, traj, last_obs = cases["ippo" if algo == "ippo" else "mappo"]
-    jcfg, pcfg = _configs(algo, update_schedule=schedule)
+    jcfg, pcfg = _configs(algo, **kw)
     j_ts, j_m = _jax_update(jenv, jcfg, ts, traj, last_obs)
     runner = _port_runner(penv, pcfg, ts)
     before = (tree_map(torch.clone, runner.state.actor_params),
               tree_map(torch.clone, runner.state.critic_params))
-    perm = _happo_perm(ts.key) if algo == "happo" else None
+    perm = _happo_perm(ts.key) if algo in ("happo", "hatrpo") else None
     p_m = runner.update_phase({k: torch.from_numpy(np.array(v)) for k, v in traj.items()},
                               torch.from_numpy(last_obs), perm=perm)
-    p_m = {k: float(v) for k, v in p_m.items()}
-    j_m = {k: float(v) for k, v in j_m.items()}
+    return (j_ts, {k: float(v) for k, v in j_m.items()}, runner,
+            {k: float(v) for k, v in p_m.items()}, before)
+
+
+def _check_metrics_and_stats(j_ts, j_m, runner, p_m):
     assert p_m["mean_reward"] == pytest.approx(j_m["mean_reward"], abs=1e-5)
     for k in ("value_loss", "policy_loss"):
         assert p_m[k] == pytest.approx(j_m[k], rel=0.15, abs=0.05), (k, p_m[k], j_m[k])
@@ -185,11 +199,145 @@ def test_update_phase_matches_jax(envs, cases, algo, schedule):
         np.testing.assert_allclose(getattr(vn, name).numpy(),
                                    np.asarray(getattr(j_ts.vnorm, name)), rtol=1e-3,
                                    err_msg=name)
-    epochs = jcfg.ppo_epoch
+
+
+@pytest.mark.parametrize("algo,schedule", [("mappo", "sequential"), ("mappo", "stacked"),
+                                           ("ippo", "sequential"), ("happo", "sequential")])
+def test_update_phase_matches_jax(envs, cases, algo, schedule):
+    j_ts, j_m, runner, p_m, before = _run_both(envs, cases, algo, update_schedule=schedule)
+    _check_metrics_and_stats(j_ts, j_m, runner, p_m)
+    epochs = runner.cfg.ppo_epoch
     _assert_params_close(j_ts.actor_params["params"], runner.state.actor_params, before[0],
                          LR, epochs, f"{algo}/{schedule} actor")
     _assert_params_close(j_ts.critic_params["params"], runner.state.critic_params, before[1],
                          LR, epochs, f"{algo}/{schedule} critic")
+
+
+def test_fused_tower_update_phase_matches_jax(envs, cases, monkeypatch):
+    """MAPPO, sequential schedule, with FUSED_TOWER=1 set on both sides
+    before JAX traces: every tower of the update goes through the whole-tower
+    path (B % 8 == 0, H = 128), and the update agrees as the per-layer one
+    does."""
+    monkeypatch.setenv("FUSED_TOWER", "1")
+    calls = []
+    real = p_fm.mlp_tower
+    monkeypatch.setattr(p_fm, "mlp_tower", lambda *a, **k: calls.append(1) or real(*a, **k))
+    j_ts, j_m, runner, p_m, before = _run_both(envs, cases, "mappo", ppo_epoch=2)
+    assert len(calls) == 2 * 2 * N        # epochs x (actor, critic) x agents
+    _check_metrics_and_stats(j_ts, j_m, runner, p_m)
+    _assert_params_close(j_ts.actor_params["params"], runner.state.actor_params, before[0],
+                         LR, 2, "tower actor")
+    _assert_params_close(j_ts.critic_params["params"], runner.state.critic_params, before[1],
+                         LR, 2, "tower critic")
+
+
+@pytest.fixture(scope="module")
+def hatrpo_run(envs, cases):
+    """One HATRPO update phase of each package (ppo_epoch 1, ls_step 3), as
+    tests/test_fused_mlp.py:310-311 cuts it."""
+    return _run_both(envs, cases, "hatrpo", ppo_epoch=1, ls_step=3)
+
+
+def test_hatrpo_update_phase_matches_jax(hatrpo_run):
+    """Metrics, PopArt statistics and the critic's one Adam step per agent;
+    the actor's optimizer does not advance."""
+    j_ts, j_m, runner, p_m, before = hatrpo_run
+    _check_metrics_and_stats(j_ts, j_m, runner, p_m)
+    _assert_params_close(j_ts.critic_params["params"], runner.state.critic_params, before[1],
+                         LR, 1, "hatrpo critic")
+    assert runner.state.actor_opt.count == [0] * N
+    assert runner.state.critic_opt.count == [1] * N
+
+
+def test_hatrpo_trust_region_step_matches_jax(hatrpo_run):
+    j_ts, _, runner, _, before = hatrpo_run
+    jp, _ = marl_params_from_flax({"params": _np_tree(j_ts.actor_params["params"])},
+                                  {"params": {}})
+    step = lambda tree: torch.cat([x.reshape(N, -1) for x in tree_leaves_like(jp, tree)], 1) \
+        - torch.cat([x.reshape(N, -1) for x in tree_leaves_like(jp, before[0])], 1)
+    d_p, d_j = step(runner.state.actor_params), step(jp)
+    for i, log in enumerate(runner.trpo_log):
+        print(f"agent step {i}: {log['fvps']} Fisher-vector products, candidate "
+              f"{log['accepted']} accepted; (improve, ratio - accept_ratio, kl_threshold - kl) "
+              f"per candidate: {[(c[0], c[1] - 0.5, 0.016 - c[2]) for c in log['candidates']]}")
+    rel = (d_p - d_j).norm(dim=1) / d_j.norm(dim=1)
+    print("relative step differences per agent:", rel.tolist())
+    assert (d_j.norm(dim=1) > 0).all()
+    assert (rel < 0.01).all(), rel
+
+
+def test_actor_apply_jvp_matches_jax(cases):
+    ts, traj, _ = cases["mappo"]
+    obs = np.moveaxis(np.asarray(traj["obs"]), 2, 0).reshape(N, T * E, -1)
+    rng = np.random.default_rng(5)
+    tangent = jax.tree_util.tree_map(
+        lambda x: (0.05 * rng.normal(size=x.shape)).astype(np.float32), _np_tree(ts.actor_params))
+    m_j, s_j, dm_j, ds_j = j_fused_nets.actor_apply_jvp(ts.actor_params, tangent, obs,
+                                                        interpret=True)
+    pa, _ = marl_params_from_flax(_np_tree(ts.actor_params), {"params": {}})
+    dpa, _ = marl_params_from_flax(tangent, {"params": {}})
+    m_p, s_p, dm_p, ds_p = p_runner.fused_nets.actor_apply_jvp(pa, dpa, torch.from_numpy(obs))
+    np.testing.assert_allclose(m_p.numpy(), np.asarray(m_j), rtol=0, atol=3e-2)
+    np.testing.assert_allclose(s_p.numpy(), np.asarray(s_j), rtol=1e-5, atol=0)
+    scale = max(float(np.abs(np.asarray(dm_j)).max()), 1e-3)
+    np.testing.assert_allclose(dm_p.numpy(), np.asarray(dm_j), rtol=0, atol=5e-2 * scale)
+    np.testing.assert_allclose(ds_p.numpy(), np.asarray(ds_j), rtol=2e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_fisher_vector_product_matches_jax(envs, cases, fused):
+    """Agent 0 at its initial parameters: the port's `_fvp` (Gauss-Newton on
+    the fused path, double backward on the flax mirror) against the JAX
+    runner's compositions: J^T M (J v) of the fused actor in interpret mode,
+    or jvp(grad(mean_kl)) of the flax actor; both + 0.1 v."""
+    from jax.flatten_util import ravel_pytree
+    _, penv = envs
+    ts, traj, _ = cases["mappo"]
+    obs = np.moveaxis(np.asarray(traj["obs"]), 2, 0).reshape(N, T * E, -1)[0]
+    ap_j = jax.tree_util.tree_map(lambda x: x[0], ts.actor_params)
+    flat, unravel = ravel_pytree(ap_j)
+    v = 0.1 * jax.random.normal(jax.random.PRNGKey(9), flat.shape)
+    Bn = obs.shape[0]
+    if fused:
+        obs_in = j_fm.feature_norm(jnp.asarray(obs))
+        one = lambda t: jax.tree_util.tree_map(lambda x: x[None], t)
+        _, s_o, dm, ds = j_fused_nets.actor_apply_jvp(one(ap_j), one(unravel(v)), obs_in[None],
+                                                      prenormed=True, interpret=True)
+
+        def apply_j(p):
+            m, s = j_fused_nets.actor_apply(one(p), obs_in[None], prenormed=True,
+                                            interpret=True)
+            return m[0], s[0]
+        _, pull = jax.vjp(apply_j, ap_j)
+        (gt,) = pull((dm[0] / s_o[0] ** 2 / Bn, 2.0 * ds[0] / s_o[0] ** 2 / Bn))
+        ref = ravel_pytree(gt)[0] + 0.1 * v
+    else:
+        actor = JRunner(envs[0], num_envs=E, cfg=_configs("mappo")[0], seed=0,
+                        print_log=False).actor
+        m_o, s_o = actor.apply(ap_j, obs)
+
+        def mean_kl(pf):
+            m, s = actor.apply(unravel(pf), obs)
+            return jnp.mean(jnp.sum(jnp.log(s / s_o) + (s_o ** 2 + (m_o - m) ** 2)
+                                    / (2.0 * s ** 2) - 0.5, axis=-1))
+        ref = jax.jvp(jax.grad(mean_kl), (flat,), (v,))[1] + 0.1 * v
+    ref_t, _ = marl_params_from_flax(_np_tree(unravel(ref)), {"params": {}})
+    v_t, _ = marl_params_from_flax(_np_tree(unravel(v)), {"params": {}})
+
+    runner = _port_runner(penv, _configs("hatrpo", use_fused_mlp=fused)[1], ts)
+    ap = tree_map(lambda x: x[0:1], runner.state.actor_params)
+    a_apply, _, norm = runner._update_nets()
+    obs_p = norm(torch.from_numpy(obs)[None])
+    req = [x.detach().clone().requires_grad_() for x in tree_leaves(ap)]
+    mean, std = a_apply(p_runner.tree_unflatten(ap, req), obs_p)
+    fvp = runner._fvp(ap, obs_p, req, mean, std)
+    v_p = torch.cat([x.reshape(-1) for x in tree_leaves(tree_map(lambda _, x: x, ap, v_t))])
+    out = torch.split(fvp(v_p), [x.numel() for x in req])
+    want = tree_leaves(tree_map(lambda _, x: x, ap, ref_t))
+    scale = max(float(np.abs(np.asarray(ref)).max()), 1e-4)
+    for (name, _), got, w in zip(_named_leaves(ap), out, want):
+        np.testing.assert_allclose(got.reshape(w.shape).detach().numpy(), w.numpy(), rtol=0,
+                                   atol=8e-2 * scale, err_msg=name)
 
 
 def test_first_minibatch_grads_match_jax(envs, cases):
@@ -304,8 +452,12 @@ def test_fused_path_choice_and_unported_parts(envs):
     assert not mk(use_fused_mlp=True, hidden_size=96).use_fused   # hidden % 128
     assert mk(use_fused_mlp=True).sequential and not mk().sequential
     assert mk(algorithm_name="happo").sequential
-    for kw, match in ((dict(cfg=PConfig(algorithm_name="hatrpo")), "HATRPO"),
-                      (dict(mesh=object()), "A.8f"), (dict(log_dir="x"), "A.8d")):
+    hatrpo = mk(algorithm_name="hatrpo")
+    assert hatrpo.sequential and hatrpo.is_happo and hatrpo.is_trpo
+    cfg = PConfig.from_cfg_train({}, "hatrpo")
+    assert (cfg.kl_threshold, cfg.ls_step, cfg.accept_ratio, cfg.ppo_epoch, cfg.hidden_size) \
+        == (0.016, 10, 0.5, 5, 512)
+    for kw, match in ((dict(mesh=object()), "A.8f"), (dict(log_dir="x"), "A.8d")):
         cfg = kw.pop("cfg", PConfig())
         with pytest.raises(NotImplementedError, match=match):
             PRunner(penv, 2, cfg, device="cpu", **kw)
