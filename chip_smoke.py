@@ -5,14 +5,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build the kernels from massive_marl_tpu_torch/ops/csrc/ (substep.cu:
-     B1; fused_mlp.cu: B2/B3; fused_tower.cu: B4/B5), one nvcc per source,
-     started together; print the build seconds and ptxas' register and
-     spill report;
+     B1 and B6; fused_mlp.cu: B2/B3; fused_tower.cu: B4/B5), one nvcc per
+     source, started together; print the build seconds and ptxas' register
+     and spill report;
   3. hold B1 against its plain PyTorch version at E=4096 envs x 10 ants
      over four state families (feet on the ground, points inside and just
      outside the push-box, hinges beyond their limits, no box); print the
      errors per output, the kernel's time (CUDA events, median of 30
      launches) beside its bound and the plain version's time;
+  3b. the same for B1's legacy branch (ContactParams(beta=None)) over the
+     same families; then B6 against its plain version at B = 1024 (its TPU
+     shape) and B = 40,960 over the debug tool's three scenarios, box on
+     and off (the same non-finite mask, the finite values within TOL); the
+     times and bounds of both;
+  3c. the debug tool (cli/debug_fused.main) for the three scenarios on the
+     card, which prints its table: exactly 2 B6 and 2 B1 launches per
+     scenario, counted from 0 before the phase;
   4. hold B2/B3 against their plain versions at the MARL update's three
      layer shapes (actor layer 0 128->512, hidden 512->512, critic layer 0
      512->512 with the share obs read by every agent), B = 32,768 rows, for
@@ -31,6 +39,14 @@ Phases; any failure raises and the script exits non-zero:
      env-steps/s, rollout ms, update ms; finite losses and observations;
      exactly 24 B1 launches (8 steps x 3 substeps) per iteration, counted
      from 0 just before this phase;
+  5b. TenAnt + PPO at full width on the array engine (sim.fused_kernel
+     false): 1 warm-up iteration through PPO.run and 1 timed; finite
+     metrics and no B1 launch; then one TenAnt step_batch with
+     contact beta None on the kernel path: 3 B1 launches, all of them of
+     the legacy branch, and every env finite or reset;
+  5c. OneAnt + PPO (E=4096, PPOConfig()): 1 warm-up iteration through
+     PPO.run and 2 timed; 24 B1 launches each (with sensor outputs, one
+     ant per env), finite observations of width 60;
   6. TenAnt + MAPPO at full width (MarlConfig(): N=10, hidden 512, 3 fused
      blocks per tower, episode_length 8, 5 epochs, E=4096, the sequential
      schedule): 1 warm-up iteration through MarlRunner.run and 3 timed
@@ -46,10 +62,10 @@ Phases; any failure raises and the script exits non-zero:
      gradients and line searches ran them, inside the range the code
      allows; and one HATRPO iteration with FUSED_TOWER=1 (30 B2 from the
      linearizations, no B3, B4/B5 as counted);
-  7. one PPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1 iteration
-     under torch.profiler: device time by kernel group, the device's busy
-     share (full lists in build/), and for PPO a host-clock breakdown of one
-     rollout step into its parts.
+  7. one PPO, one PPO array-path, one OneAnt PPO, one MAPPO, one HATRPO and
+     one MAPPO FUSED_TOWER=1 iteration under torch.profiler: device time by
+     kernel group, the device's busy share (full lists in build/), and for
+     PPO a host-clock breakdown of one rollout step into its parts.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -130,24 +146,9 @@ def make_states(env, n_env, seed, device):
 
 
 def ops_per_articulation(fs, c, env) -> float:
-    """Operations of one substep per articulation, counted from the plain
-    version (branch-free, so every input needs the same count) on the CPU."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Counter(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func.overloadpacket.__name__ in ARITH_OPS and isinstance(out, torch.Tensor):
-                Counter.n += out.numel()
-            return out
-
-    ops = make_states(env, 1, 0, "cpu")
-    with Counter():
-        fs.substep_plain(c, A, *ops)
-    return Counter.n / A
+    """Operations of one B1 substep per articulation, counted from the plain
+    version on the CPU."""
+    return count_ops(fs.substep_plain, c, A, *make_states(env, 1, 0, "cpu")) / A
 
 
 def time_cuda_ms(fn, reps, warmup=2):
@@ -170,17 +171,29 @@ def check_kernel(fs, c, ops, label):
     """Kernel vs plain version on the same operands; returns the worst
     absolute error and raises on any tolerance break."""
     import torch
-    got = fs.substep_kernel(c.device_table(ops[0].device), c.P, A, *ops)
+    got = fs.substep_kernel(c, A, *ops)
     torch.cuda.synchronize()
     ref = fs.substep_plain(c, A, *ops)
     torch.cuda.synchronize()
+    return compare_outputs(zip(TOL, got, ref), c.has_box, label)
+
+
+def compare_outputs(triples, has_box, label, finite_only=True):
+    """(name, kernel output, plain output) against TOL; with finite_only
+    False the non-finite masks must agree and the finite values are held to
+    TOL.  Returns the worst absolute error."""
+    import torch
     worst = 0.0
-    for name, g, r in zip(TOL, got, ref):
-        if name == "wrench" and not c.has_box:
+    for name, g, r in triples:
+        if name == "wrench" and not has_box:
             continue
         rtol, atol = TOL[name]
-        if not torch.isfinite(g).all():
+        if finite_only and not torch.isfinite(g).all():
             raise AssertionError(f"{label}: kernel {name} has non-finite values")
+        mask = torch.isfinite(r)
+        if not torch.equal(torch.isfinite(g), mask):
+            raise AssertionError(f"{label}: kernel {name}'s non-finite values differ")
+        g, r = g[mask], r[mask]
         err = (g - r).abs()
         rel = (err / r.abs().clamp(min=1e-6)).max().item()
         bad = int((err > atol + rtol * r.abs()).sum())
@@ -191,6 +204,174 @@ def check_kernel(fs, c, ops, label):
             raise AssertionError(f"{label}: kernel {name} disagrees with the plain version")
         worst = max(worst, err.max().item())
     return worst
+
+
+def substep_bound(per_art, n_art, n_box, table_numel, n_out):
+    """(bound ms, "bytes" | "operations", bytes) of one substep launch:
+    state, torques and box state read once, outputs written once; the
+    articulations' operations at the FP32 rate."""
+    nbytes = 4 * (n_art * (15 + 14 + 8) + n_box * (7 + 6) + table_numel + n_art * n_out)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = per_art * n_art / FP32_OPS_PER_S * 1e3
+    return (ops_ms, "operations", nbytes) if ops_ms >= bytes_ms else (bytes_ms, "bytes", nbytes)
+
+
+def count_ops(fn, *args) -> int:
+    """Elementwise operations of fn(*args) (a plain version, branch-free, so
+    every input needs the same count) on the CPU."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ in ARITH_OPS and isinstance(out, torch.Tensor):
+                Counter.n += out.numel()
+            return out
+
+    with Counter():
+        fn(*args)
+    return Counter.n
+
+
+def legacy_phase(fs, env, dev):
+    """Phase 3b: B1's legacy branch at E x A over the phase-3 families, B6
+    at B = 1024 and 40,960 over the debug tool's scenarios.  Returns
+    (B1-legacy row, B6 row): worst error, ms, plain ms, bound ms, bound by."""
+    import torch
+    from massive_marl_tpu_torch.cli import debug_fused as df
+    from massive_marl_tpu_torch.phys.engine import ContactParams
+    c_leg = fs.scene_consts(env.spec._replace(contact=ContactParams(beta=None)))
+    ops = make_states(env, E, 1, dev)
+    B = E * A
+    print(f"B1 legacy branch (beta=None) vs plain at E={E} (B={B} articulations):")
+    leg = {"err": check_kernel(fs, c_leg, ops, "legacy")}
+    leg["ms"] = time_cuda_ms(lambda: fs.substep_kernel(c_leg, A, *ops), KERNEL_REPS)
+    leg["plain_ms"] = time_cuda_ms(lambda: fs.substep_plain(c_leg, A, *ops), PLAIN_REPS, warmup=1)
+    per_art = ops_per_articulation(fs, c_leg, env)
+    leg["bound"], leg["by"], nbytes = substep_bound(per_art, B, E, c_leg.table.numel(), 59)
+    print(f"  kernel {leg['ms']:.4f} ms (median of {KERNEL_REPS}), plain {leg['plain_ms']:.2f} ms; "
+          f"bound {leg['bound']:.4f} ms by {leg['by']} ({nbytes / 1e6:.2f} MB, "
+          f"{per_art:.0f} ops/articulation)")
+    del ops
+
+    sys_, hinge = env.spec.ant_sys, env.model.init_hinge
+    consts = {box: df.kernel_consts(sys_, box, clamp=False) for box in (True, False)}
+    b6 = {"err": 0.0}
+    for n in (1024, B):
+        for sc in sorted(df.SCENARIOS):
+            ops = [x.t().contiguous() for x in df.make_states(sys_, hinge, n, sc, 0, dev)]
+            for box, c in consts.items():
+                got = fs.debug_substep_kernel(c, *ops)
+                torch.cuda.synchronize()
+                ref = fs.debug_substep_plain(c, *ops)
+                nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
+                err = compare_outputs(zip(("qpos", "qvel", "wrench"), got, ref), box,
+                                      f"B6 B={n} {sc} box={box}", finite_only=False)
+                print(f"  B6 B={n} {sc:8s} box={box!s:5s}: max abs err {err:.3e}, "
+                      f"max|qvel| {ref[1].abs().max().item():.6g}, non-finite {nonfinite}")
+                b6["err"] = max(b6["err"], err)
+        # timed on the tool's box case in the chaotic scenario
+        c = consts[True]
+        ops = [x.t().contiguous() for x in df.make_states(sys_, hinge, n, "chaotic", 0, dev)]
+        small = [x.t().contiguous() for x in df.make_states(sys_, hinge, 8, "chaotic")]
+        per_art = count_ops(fs.debug_substep_plain, c, *small) / 8
+        row = {"ms": time_cuda_ms(lambda: fs.debug_substep_kernel(c, *ops), KERNEL_REPS),
+               "plain_ms": time_cuda_ms(lambda: fs.debug_substep_plain(c, *ops), PLAIN_REPS,
+                                        warmup=1)}
+        row["bound"], row["by"], nbytes = substep_bound(per_art, n, n, c.table.numel(), 35)
+        print(f"  B6 at B={n} (chaotic, box): kernel {row['ms']:.4f} ms (median of "
+              f"{KERNEL_REPS}), plain {row['plain_ms']:.2f} ms; bound {row['bound']:.5f} ms by "
+              f"{row['by']} ({nbytes / 1e6:.3f} MB, {per_art:.0f} ops/articulation)")
+        b6[n] = row
+        del ops
+    return leg, b6
+
+
+def debug_tool_phase(fs):
+    """Phase 3c: the debug tool's main() for the three scenarios on the
+    card: 2 B6 and 2 B1 launches per scenario.  Returns B6's launches."""
+    from massive_marl_tpu_torch.cli import debug_fused as df
+    fs.substep_kernel.launches = fs.debug_substep_kernel.launches = 0
+    for sc in sorted(df.SCENARIOS):
+        before = fs.debug_substep_kernel.launches, fs.substep_kernel.launches
+        rows = df.main(["--scenario", sc, "--device", "cuda"])
+        got = (fs.debug_substep_kernel.launches - before[0], fs.substep_kernel.launches - before[1])
+        if len(rows) != 4 or got != (2, 2):
+            raise AssertionError(f"debug tool {sc}: {len(rows)} cases, B6/B1 launches {got}, "
+                                 "expected 4 cases and (2, 2)")
+    print(f"debug tool: B6/B1 launches {fs.debug_substep_kernel.launches}/"
+          f"{fs.substep_kernel.launches} over the three scenarios")
+    return fs.debug_substep_kernel.launches
+
+
+def check_ppo(ppo, it, m, launches, want, width):
+    """Finite metrics and observations of width `width`; B1 launches."""
+    import torch
+    obs = ppo.state.env_state.obs
+    if tuple(obs.shape) != (E, width) or not torch.isfinite(obs).all():
+        raise AssertionError(f"iteration {it}: bad observations {tuple(obs.shape)}")
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"iteration {it}: non-finite metrics {m}")
+    if launches != want:
+        raise AssertionError(f"iteration {it}: {launches} B1 launches, expected {want}")
+    print(f"  rew/step {m['mean_reward']:.3f}, vloss {m['mean_value_loss']:.3f}, "
+          f"surr {m['mean_surrogate_loss']:.4f}, lr {m['lr']:.2e}, B1 launches {launches}")
+
+
+def ppo_phase(env, label, timed, want, width, dev):
+    """PPO at E envs on `env`: 1 warm-up iteration through PPO.run, then
+    `timed` iterations; B1 launches counted from 0 and checked against
+    `want` per iteration.  Returns the trainer."""
+    import torch
+    from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
+    from massive_marl_tpu_torch.ops import fused_substep as fs
+    ppo = PPO(env, E, PPOConfig(), seed=0, device=dev, print_log=False)
+    ppo.init_state()
+    fs.substep_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ppo.run(1)
+    torch.cuda.synchronize()
+    print(f"  {label} it 0 (warm-up, PPO.run): {1e3 * (time.perf_counter() - t0):.1f} ms;", end="")
+    check_ppo(ppo, 0, ppo.last_metrics, fs.substep_kernel.launches, want, width)
+    rows = []
+    for it in range(1, 1 + timed):
+        n0 = fs.substep_kernel.launches
+        m, roll_s, upd_s = timed_iteration(ppo)
+        rows.append((roll_s, upd_s))
+        print(f"  {label} it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms;",
+              end="")
+        check_ppo(ppo, it, m, fs.substep_kernel.launches - n0, want, width)
+    sps = statistics.median(ppo.cfg.nsteps * E / (r + u) for r, u in rows)
+    print(f"{label} E={E}: {sps:.1f} env-steps/s (median of {timed}), rollout "
+          f"{1e3 * statistics.median(r for r, _ in rows):.1f} ms, update "
+          f"{1e3 * statistics.median(u for _, u in rows):.1f} ms")
+    return ppo
+
+
+def legacy_step_check(fs, dev):
+    """One TenAnt step_batch with contact beta None on the kernel path: 3 B1
+    launches of the legacy branch; every env finite, or reset (progress 0)."""
+    import torch
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    env = TenAntEnv({"sim": {"contact": {"beta": None}}}, device=dev, seed=0)
+    st = env.reset(E)
+    g = torch.Generator(device=dev).manual_seed(1)
+    actions = torch.rand(E, 80, generator=g, device=dev) * 2 - 1
+    fs.substep_kernel.launches = fs.substep_kernel.legacy_launches = 0
+    out = env.step_batch(st, actions)
+    torch.cuda.synchronize()
+    got = (fs.substep_kernel.launches, fs.substep_kernel.legacy_launches)
+    finite = all(torch.isfinite(x).all() for x in (out.obs, out.pipeline.ant_qpos,
+                                                   out.pipeline.ant_qvel, out.pipeline.box_qpos))
+    resets = int((out.progress == 0).sum())
+    if got != (3, 3) or not finite or not bool(((out.progress == 0) | (out.progress == 1)).all()):
+        raise AssertionError(f"legacy TenAnt step: B1/legacy launches {got}, finite {finite}")
+    print(f"TenAnt step_batch, contact beta None (kernel path): B1 launches {got[0]}, all of the "
+          f"legacy branch; every env finite after the step, {resets} of {E} reset")
 
 
 def mlp_operands(N, Din, H, layer0, shared, gen, dev):
@@ -803,7 +984,7 @@ def main() -> int:
     print(f"B1 vs plain at E={E} (B={B} articulations):")
     max_err = max(check_kernel(fs, c_box, ops, "box"), check_kernel(fs, c_nobox, ops, "no-box"))
     table = c_box.device_table(dev)
-    kernel_ms = time_cuda_ms(lambda: fs.substep_kernel(table, c_box.P, A, *ops), KERNEL_REPS)
+    kernel_ms = time_cuda_ms(lambda: fs.substep_kernel(c_box, A, *ops), KERNEL_REPS)
     plain_ms = time_cuda_ms(lambda: fs.substep_plain(c_box, A, *ops), PLAIN_REPS, warmup=1)
     per_ant = ops_per_articulation(fs, c_box, env)
     bytes_moved = 4 * (B * (15 + 14 + 8) + E * (7 + 6) + table.numel()
@@ -816,6 +997,12 @@ def main() -> int:
           f"{bytes_moved / 1e6:.2f} MB -> {bytes_ms:.4f} ms, "
           f"{per_ant:.0f} ops/articulation x {B} -> {ops_ms:.4f} ms")
     del ops
+
+    # ---- 3b. B1's legacy branch and B6 vs their plain versions
+    _, b6_row = legacy_phase(fs, env, dev)
+
+    # ---- 3c. the debug tool on the card
+    b6_launches = debug_tool_phase(fs)
 
     # ---- 4. B2/B3 vs plain versions at the MARL update's shapes
     print(f"B2/B3 vs plain at B={MLP_B} rows per agent:")
@@ -867,6 +1054,19 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"kernel launches {ppo_launches} over 4 iterations")
 
+    # ---- 5b. TenAnt + PPO on the array engine; one legacy step on the kernel
+    print("TenAnt+PPO on the array engine (sim.fused_kernel false):")
+    ppo_arr = ppo_phase(TenAntEnv({"sim": {"fused_kernel": False}}, device=dev, seed=0),
+                        "TenAnt+PPO array path", 1, 0, 388, dev)
+    legacy_step_check(fs, dev)
+    torch.cuda.empty_cache()
+
+    # ---- 5c. OneAnt + PPO
+    from massive_marl_tpu_torch.envs.one_ant import OneAntEnv
+    print("OneAnt+PPO (kernel path, sensors):")
+    ppo_one = ppo_phase(OneAntEnv(device=dev, seed=0), "OneAnt+PPO", 2, per_iter, 60, dev)
+    torch.cuda.empty_cache()
+
     # ---- 6. TenAnt + MAPPO (then stacked, HAPPO, FUSED_TOWER=1, HATRPO) at full width
     marl_counts, tower_counts, (runner, tower, trpo) = marl_phase(dev)
 
@@ -874,6 +1074,11 @@ def main() -> int:
     profile_iteration(ppo, os.path.join(root, "build", "profile_iteration.txt"), "PPO")
     rollout_step_parts(ppo)
     del ppo
+    profile_iteration(ppo_arr, os.path.join(root, "build", "profile_array_iteration.txt"),
+                      "PPO array path")
+    profile_iteration(ppo_one, os.path.join(root, "build", "profile_one_ant_iteration.txt"),
+                      "OneAnt PPO")
+    del ppo_arr, ppo_one
     profile_iteration(runner, os.path.join(root, "build", "profile_mappo_iteration.txt"),
                       "MAPPO")
     profile_iteration(trpo, os.path.join(root, "build", "profile_hatrpo_iteration.txt"),
@@ -906,7 +1111,14 @@ def main() -> int:
         mlp_entry("mlp_tower_fwd", "fwd", tower_counts[3], "fused_tower.cu", 265, tower_err,
                   tower_main),
         mlp_entry("mlp_tower_bwd", "bwd", tower_counts[4], "fused_tower.cu", 288, tower_err,
-                  tower_main)]}))
+                  tower_main),
+        {"name": "debug_substep", "route": "cuda",
+         "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
+         "replaces": "scripts/debug_fused_tpu.py:134",
+         "launches": b6_launches, "max_abs_err": b6_row["err"],
+         "ms": b6_row[1024]["ms"], "plain_ms": b6_row[1024]["plain_ms"],
+         "bound_ms": b6_row[1024]["bound"], "bound_by": b6_row[1024]["by"],
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

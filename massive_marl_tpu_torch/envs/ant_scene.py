@@ -1,11 +1,15 @@
-"""Batched ant(+box) scene state and reset (twin of
-massive_marl_tpu/envs/ant_scene.py).
+"""Batched ant(+box) scene: state, reset and the array-path control step
+(twin of massive_marl_tpu/envs/ant_scene.py).
 
 One env = A ant articulations and, optionally, one free push-box.  Ants
 never collide with each other; the box's material friction is 0 and pair
 frictions follow `friction_combine`; actions are hinge torques
-action * gear * power_scale.  The control step itself is
-ops/fused_substep.fused_scene_step.  Domain randomization is not ported yet.
+action * gear * power_scale.  A control step runs either here on the array
+engine (`scene_step`, the reference's path off the TPU), or on the substep
+kernel (ops/fused_substep.fused_scene_step); both take the push-box's
+free-body substep from `box_substep`.  Joint damping and the joint-limit
+spring and damping integrate implicitly.  Domain randomization is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -48,6 +52,78 @@ class AntSceneSpec(NamedTuple):
     dr_spec: Any = None
     limit_k: Optional[float] = None        # None = engine.LIMIT_K
     limit_damp: Optional[float] = None     # None = engine.LIMIT_DAMP
+
+
+def box_substep(spec: AntSceneSpec, bq, bv, wrench_sum, h):
+    """One free-body substep of the push-box for every env ([E,7], [E,6]),
+    with the summed ant contact wrench about the box origin folded in."""
+    bsys, cp = spec.box_sys, spec.contact
+    fk_b = engine.fwd_kinematics(bsys, bq, bv)
+    p_b, v_b = engine.points_world(bsys, fk_b)
+    pi_b = engine.point_inertia(bsys, fk_b, p_b)
+    mu_bg = (spec.box_ground_mu if spec.box_ground_mu is not None
+             else engine.combine_mu(bsys.point_friction, spec.plane_friction,
+                                    spec.friction_combine))
+    f_b = engine.contact_plane(p_b, v_b, bsys.point_radius, mu_bg, cp, pi=pi_b, h=h)
+    f_ext_b = engine.accumulate_body_forces(bsys, p_b, f_b, fk_b.base)
+    f_ext_b = [f_ext_b[0] + wrench_sum]
+    gravity = torch.tensor(spec.gravity, dtype=bq.dtype, device=bq.device)
+    bacc = engine.forward_dynamics(bsys, fk_b, bv, bq.new_zeros(bq.shape[:-1] + (0,)),
+                                   f_ext_b, gravity)
+    return engine.integrate(bsys, bq, bv, bacc, h)
+
+
+def scene_step(spec: AntSceneSpec, state: AntSceneState, actions: torch.Tensor) -> AntSceneState:
+    """Advance one control step on the array engine.  state has a leading
+    env axis (ant_qpos [E,A,15], box_qpos [E,7]); actions [E,A,8] in [-1,1].
+
+    Per substep and ant: plane contacts, and box contacts against the box
+    state at the start of the substep; foot sensors; the joint-limit spring
+    with its damping and stiffness (and the joints' own damping) implicit in
+    the solve.  Then the box's free-body substep with the ants' summed
+    wrench.  The sensors are the last substep's.  As in the reference, the
+    contacts always take the implicit branch here (the point inertia and the
+    substep are given), whatever ContactParams.beta is."""
+    if spec.dr_spec is not None:
+        raise NotImplementedError("domain randomization is not ported yet")
+    sys, cp = spec.ant_sys, spec.contact
+    h = spec.dt / spec.substeps
+    gravity = torch.tensor(spec.gravity, dtype=actions.dtype, device=actions.device)
+    tau_act = actions * sys.gear * spec.power_scale
+    has_box = spec.box_sys is not None
+    mu_plane = engine.combine_mu(sys.point_friction, spec.plane_friction, spec.friction_combine)
+    if has_box:
+        bsys = spec.box_sys
+        box_inv = (1.0 / bsys.mass[0], engine._inv3x3_sym(bsys.inertia[0]))
+        mu_box = (spec.ant_box_mu if spec.ant_box_mu is not None
+                  else engine.combine_mu(sys.point_friction, float(bsys.point_friction[0]),
+                                         spec.friction_combine))
+    limit_k = spec.limit_k if spec.limit_k is not None else engine.LIMIT_K
+    limit_damp = spec.limit_damp if spec.limit_damp is not None else engine.LIMIT_DAMP
+
+    aq, av, bq, bv = state.ant_qpos, state.ant_qvel, state.box_qpos, state.box_qvel
+    for _ in range(spec.substeps):
+        fk = engine.fwd_kinematics(sys, aq, av)
+        p_w, v_w = engine.points_world(sys, fk)
+        pi = engine.point_inertia(sys, fk, p_w)
+        f_pts = engine.contact_plane(p_w, v_w, sys.point_radius, mu_plane, cp, pi=pi, h=h)
+        if has_box:
+            f_box, wrench = engine.contact_box(
+                p_w, v_w, sys.point_radius, mu_box, bq[:, None, 0:3], bq[:, None, 3:7],
+                bv[:, None, :], spec.box_half_extents, cp, pi=pi, h=h, box_inv=box_inv)
+            f_pts = f_pts + f_box
+        f_ext = engine.accumulate_body_forces(sys, p_w, f_pts, fk.base)
+        sensors = engine.sensor_forces(sys, f_pts, fk, p_w)
+        t_lim, d_lim, k_lim = engine.joint_limit_spring(sys, aq, k=limit_k, damp=limit_damp)
+        qacc = engine.forward_dynamics(sys, fk, av, tau_act + t_lim, f_ext, gravity,
+                                       imp_damping=sys.damping + d_lim, h=h,
+                                       imp_stiffness=k_lim)
+        if has_box:
+            bq, bv = box_substep(spec, bq, bv, wrench.sum(dim=1), h)
+        aq, av = engine.integrate(sys, aq, av, qacc, h)
+    return dataclasses.replace(state, ant_qpos=aq, ant_qvel=av, box_qpos=bq, box_qvel=bv,
+                               sensors=sensors, dr_count=state.dr_count + 1,
+                               frame=state.frame + 1)
 
 
 def reset_scene(spec: AntSceneSpec, generator: torch.Generator, num_envs: int,

@@ -24,6 +24,28 @@ class EnvState:
     reward: torch.Tensor     # [E] float32 (shared by all agents of an env)
 
 
+def finish_step(env, stepped, actions: torch.Tensor, state: EnvState) -> EnvState:
+    """What follows the physics in an ant task's step: blow-up containment
+    (a non-finite env resets), the auto-reset overwrite, obs, reward.  Fresh
+    states are drawn for every env and selected where an env resets, as in
+    the reference.  `env` provides _fresh_pipeline, _carry_of, _obs and
+    _reward."""
+    E = actions.shape[0]
+    fresh = env._fresh_pipeline(E, frame=stepped.frame)
+    finite = (torch.isfinite(stepped.ant_qpos).flatten(1).all(1)
+              & torch.isfinite(stepped.ant_qvel).flatten(1).all(1)
+              & torch.isfinite(stepped.box_qpos).all(1)
+              & torch.isfinite(stepped.box_qvel).all(1))
+    reset_now = state.done | ~finite
+    pipeline = select_tree(reset_now, fresh, stepped)
+    carry_prev = select_tree(reset_now, env._carry_of(fresh), state.carry)
+    progress = torch.where(reset_now, 0, state.progress + 1).to(torch.int32)
+    obs = env._obs(pipeline, actions)
+    reward, done = env._reward(obs, actions, pipeline, carry_prev, progress)
+    return EnvState(pipeline=pipeline, carry=env._carry_of(pipeline),
+                    progress=progress, done=done, obs=obs, reward=reward)
+
+
 def select_tree(pred: torch.Tensor, a, b):
     """torch.where(pred, a, b) over equal-shaped dataclasses / tuples of
     tensors; pred [E] broadcasts over each leaf's trailing axes."""

@@ -55,6 +55,21 @@ def ant_obs_38(qpos, qvel, actions, targets, dof_lower, dof_upper, dof_vel_scale
     ], dim=-1)
 
 
+def ant_obs_60(qpos, qvel, actions, sensors, targets, dof_lower, dof_upper, dof_vel_scale,
+               contact_force_scale):
+    """OneAnt's 60-dim observation: [z, vel_loc3, angvel_loc3, yaw, roll,
+    angle_to_target, up_proj, heading_proj, dof_pos_scaled8, dof_vel*scale8,
+    foot_sensors24*scale, actions8]; sensors [..., 4, 6]."""
+    pos = qpos[..., 0:3]
+    b = heading_and_rot(pos, qpos[..., 3:7], qvel[..., 0:3], qvel[..., 3:6], targets)
+    return torch.cat([
+        pos[..., 2:3], b.vel_loc, b.angvel_loc,
+        torch.stack([b.yaw, b.roll, b.angle_to_target, b.up_proj, b.heading_proj], dim=-1),
+        unscale(qpos[..., 7:], dof_lower, dof_upper), qvel[..., 6:] * dof_vel_scale,
+        sensors.flatten(-2) * contact_force_scale, actions,
+    ], dim=-1)
+
+
 def box_yaw_goal_dir(box_quat):
     """(sin a, -cos a) with a = atan(2 qw qz / (1 - 2 qz^2)), the box-yaw goal
     direction."""

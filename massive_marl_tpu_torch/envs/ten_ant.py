@@ -10,7 +10,11 @@ massive_marl_tpu/envs/ten_ant.py).
   * one shared team reward per env.
 
 Every method works on a batch of envs.  The physics of `step_batch` runs
-through ops/fused_substep (the CUDA substep kernel on the card).
+through ops/fused_substep (the CUDA substep kernel on the card) unless
+`sim.fused_kernel` is false, which takes the array engine's
+envs/ant_scene.scene_step.  "auto" (the default) keeps the kernel path on
+every device, CPU included, where the kernel wrapper runs its plain version;
+the JAX package's "auto" means the kernel only on a TPU.
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.envs import obs_math
-from massive_marl_tpu_torch.envs.ant_scene import AntSceneSpec, AntSceneState, reset_scene
-from massive_marl_tpu_torch.envs.base import EnvState, select_tree
+from massive_marl_tpu_torch.envs.ant_scene import (AntSceneSpec, AntSceneState, reset_scene,
+                                                   scene_step)
+from massive_marl_tpu_torch.envs.base import EnvState, finish_step
 from massive_marl_tpu_torch.ops import fused_substep
 from massive_marl_tpu_torch.phys import mjcf
 from massive_marl_tpu_torch.phys.engine import ContactParams
@@ -68,6 +73,8 @@ class TenAntEnv:
 
         sim_cfg = cfg.get("sim", {})
         plane_cfg = env_cfg.get("plane", {}) or {}
+        fused = sim_cfg.get("fused_kernel", "auto")
+        self.use_fused = True if fused == "auto" else bool(fused)
         abm = sim_cfg.get("ant_box_friction", None)
         bgm = sim_cfg.get("box_ground_friction", None)
         model = mjcf.parse_mjcf(mjcf.asset_path("ant.xml"))
@@ -134,28 +141,14 @@ class TenAntEnv:
     def step_batch(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         """actions [E,80] (joint-action layout) -> the next EnvState."""
         actions = actions.reshape(actions.shape[0], 10, 8)
-        stepped = fused_substep.fused_scene_step(self.spec, state.pipeline, actions,
-                                                 self.substep_consts)
+        if self.use_fused:
+            stepped = fused_substep.fused_scene_step(self.spec, state.pipeline, actions,
+                                                     self.substep_consts)
+        else:
+            stepped = scene_step(self.spec, state.pipeline, actions)
         return self._finish_step(stepped, actions, state)
 
-    def _finish_step(self, stepped: AntSceneState, actions, state: EnvState) -> EnvState:
-        """Blow-up containment, auto-reset overwrite, obs, reward.  Fresh
-        states are drawn for every env and selected where an env resets, as
-        in the reference."""
-        E = actions.shape[0]
-        fresh = self._fresh_pipeline(E, frame=stepped.frame)
-        finite = (torch.isfinite(stepped.ant_qpos).flatten(1).all(1)
-                  & torch.isfinite(stepped.ant_qvel).flatten(1).all(1)
-                  & torch.isfinite(stepped.box_qpos).all(1)
-                  & torch.isfinite(stepped.box_qvel).all(1))
-        reset_now = state.done | ~finite
-        pipeline = select_tree(reset_now, fresh, stepped)
-        carry_prev = select_tree(reset_now, self._carry_of(fresh), state.carry)
-        progress = torch.where(reset_now, 0, state.progress + 1).to(torch.int32)
-        obs = self._obs(pipeline, actions)
-        reward, done = self._reward(obs, actions, pipeline, carry_prev, progress)
-        return EnvState(pipeline=pipeline, carry=self._carry_of(pipeline),
-                        progress=progress, done=done, obs=obs, reward=reward)
+    _finish_step = finish_step
 
     def _reward(self, obs, actions, pipeline: AntSceneState, carry: TenAntCarry, progress):
         """Shared team reward and done flags, [E] each."""

@@ -1,17 +1,28 @@
 // One physics substep for a batch of ant articulations, one articulation
 // per thread (CUDA C++ for sm_90a).
 //
-// Replaces the TPU kernel massive_marl_tpu/ops/fused_substep.py::_substep_kernel
-// (a pallas_call whose body is massive_marl_tpu/ops/scalar_phys.py::substep
-// with _contact_force).  The plain PyTorch version with the same arithmetic
-// is massive_marl_tpu_torch/ops/scalar_phys.py::substep; both read the same
-// flat constant table (scalar_phys.bake_consts), whose field order the
-// O_* offsets below repeat.
+// Replaces two TPU kernels with one templated body:
+//   B1 massive_marl_tpu/ops/fused_substep.py::_substep_kernel (a pallas_call
+//      whose body is massive_marl_tpu/ops/scalar_phys.py::substep with
+//      _contact_force), launched by substep_launch as <LEGACY, true>, LEGACY
+//      from the table's flag (ContactParams.beta None);
+//   B6 scripts/debug_fused_tpu.py::kernel_fn (B1's body under beta=None,
+//      without the sensor outputs, the box state given per articulation),
+//      launched by debug_substep_launch as <true, false>.
+// LEGACY selects the reference's explicit spring-damper contact branch
+// (fn = max(kn depth - kd vn, 0), friction ramped over friction_vel), which
+// reads no inverse inertia; SENSORS writes the foot-sensor wrenches.  Both
+// are compile-time, so the main path's <false, true> is the code it was
+// before the legacy branch came in.  The plain PyTorch version with the same
+// arithmetic is massive_marl_tpu_torch/ops/scalar_phys.py::substep; both read
+// the same flat constant table (scalar_phys.bake_consts), whose field order
+// the O_* offsets below repeat.
 //
 // Per thread, in the reference's order:
 //   1. forward kinematics over the body tree;
 //   2. plane and box contact for every contact point: implicit
-//      effective-mass normal force, exact-stiction Coulomb friction;
+//      effective-mass normal force, exact-stiction Coulomb friction (or the
+//      legacy explicit force);
 //   3. joint-limit spring and damping, folded implicitly into diag(M);
 //   4. CRBA mass matrix and velocity-product bias forces;
 //   5. dense Cholesky solve (structural zeros of the reference's sparse
@@ -19,11 +30,13 @@
 //   6. semi-implicit integration with velocity clamps and quaternion
 //      renormalisation;
 //   7. the articulation's contact wrench on the box about the box origin,
-//      and the foot-sensor wrenches in the foot frames.
+//      and the foot-sensor wrenches in the foot frames (SENSORS).
 //
 // Layout: struct-of-arrays [field, B], so thread b reads x[f*B + b] and a
 // warp's loads are coalesced; the box state is [field, E] and read at
-// env = b / num_ants.  A tail mask replaces the TPU version's padding.
+// env = b / num_ants (B6: num_ants = 1, E = B, one box state per
+// articulation).  A tail mask replaces the TPU version's padding, and B6's
+// grid of 8 x 128 lanes becomes ceil(B / 128) blocks of 128 threads.
 //
 // What bounds it on this card: per articulation the kernel moves ~100 floats
 // of state (about 16 MB at B = 40,960, ~5 us at 3.35 TB/s) but executes tens
@@ -33,7 +46,9 @@
 // registers a thread may hold and spills to local memory, which the L1 cache
 // serves.  This first version accepts the spill (see -Xptxas -v in PERF.md);
 // model constants are staged once per block in shared memory so the
-// spilled state is the only local-memory traffic.
+// spilled state is the only local-memory traffic.  B6 at its TPU shape
+// (B = 1024) is 8 blocks on 132 SMs, one partial wave, so it is bound by one
+// thread's latency, not by the card's rate.
 //
 // NaN semantics follow jnp.maximum/minimum/clip (NaN propagates), so a
 // blown-up articulation stays non-finite and the environment's blow-up
@@ -61,7 +76,9 @@ constexpr int O_MAX_DEPEN_VEL = O_KD + 1;
 constexpr int O_HC_VEL = O_MAX_DEPEN_VEL + 1;
 constexpr int O_HC_CAP = O_HC_VEL + 1;
 constexpr int O_ACC_UNITS = O_HC_CAP + 1;
-constexpr int O_LIMIT_K = O_ACC_UNITS + 1;
+constexpr int O_LEGACY = O_ACC_UNITS + 1;
+constexpr int O_FRICTION_VEL = O_LEGACY + 1;
+constexpr int O_LIMIT_K = O_FRICTION_VEL + 1;
 constexpr int O_LIMIT_DAMP = O_LIMIT_K + 1;
 constexpr int O_MAX_LIN_VEL = O_LIMIT_DAMP + 1;
 constexpr int O_MAX_ANG_VEL = O_MAX_LIN_VEL + 1;
@@ -217,32 +234,42 @@ __device__ __forceinline__ float w_eval(const WFn& w, V3 d) {
   return out;
 }
 
-struct Contact { float h, kn, kd, mdv, hc_vel, hc_cap; bool acc_units; };
+struct Contact { float h, kn, kd, mdv, hc_vel, hc_cap, fv; bool acc_units; };
 
+// LEGACY: the explicit spring-damper with friction ramped over fv, which
+// never evaluates w
+template <bool LEGACY>
 __device__ __forceinline__ V3 contact_force(float depth, V3 n, V3 v_rel, float mu,
                                             const WFn& w, const Contact& c) {
   const float active = depth > 0.f ? 1.f : 0.f;
   const float vn = dot(v_rel, n);
   const V3 vt = sub(v_rel, scale(n, vn));
   const float vt_norm = sqrtf(dot(vt, vt) + 1e-12f);
-  const float w_n = w_eval(w, n);
-  const float inv_vt = 1.0f / vt_norm;
-  const float w_t = w_eval(w, scale(vt, inv_vt));
-  float kn = c.kn;
-  if (c.hc_vel != 0.f) {
-    float fac = jmax(1.0f - vn / jmax(c.hc_vel, 1e-9f), 0.f);
-    if (c.hc_cap > 0.f) fac = jmin(fac, c.hc_cap);
-    if (c.hc_vel > 0.f) kn = kn * fac;
+  if constexpr (LEGACY) {
+    const float fn = jmax(c.kn * depth - c.kd * vn, 0.f) * active;
+    const float ft = jmin(mu * fn, mu * fn * vt_norm / c.fv);
+    return sub(scale(n, fn), scale(vt, ft / vt_norm));
+  } else {
+    const float w_n = w_eval(w, n);
+    const float inv_vt = 1.0f / vt_norm;
+    const float w_t = w_eval(w, scale(vt, inv_vt));
+    float kn = c.kn;
+    if (c.hc_vel != 0.f) {
+      float fac = jmax(1.0f - vn / jmax(c.hc_vel, 1e-9f), 0.f);
+      if (c.hc_cap > 0.f) fac = jmin(fac, c.hc_cap);
+      if (c.hc_vel > 0.f) kn = kn * fac;
+    }
+    const float kh = kn * c.h + c.kd;
+    float fn = c.acc_units ? (kn * depth - kh * vn) / (w_n * (1.0f + c.h * kh))
+                           : (kn * depth - kh * vn) / (1.0f + w_n * c.h * kh);
+    fn = jmax(fn, 0.f) * active;
+    fn = jmin(fn, jmax(c.mdv - vn, 0.f) / (w_n * c.h));
+    const float ft = jmin(mu * fn, vt_norm / (w_t * c.h));
+    return sub(scale(n, fn), scale(vt, ft / vt_norm));
   }
-  const float kh = kn * c.h + c.kd;
-  float fn = c.acc_units ? (kn * depth - kh * vn) / (w_n * (1.0f + c.h * kh))
-                         : (kn * depth - kh * vn) / (1.0f + w_n * c.h * kh);
-  fn = jmax(fn, 0.f) * active;
-  fn = jmin(fn, jmax(c.mdv - vn, 0.f) / (w_n * c.h));
-  const float ft = jmin(mu * fn, vt_norm / (w_t * c.h));
-  return sub(scale(n, fn), scale(vt, ft / vt_norm));
 }
 
+template <bool LEGACY, bool SENSORS>
 __global__ void __launch_bounds__(THREADS)
 substep_kernel(const float* __restrict__ table, int table_len, int P, int num_ants, int B, int E,
                const float* __restrict__ qpos_in, const float* __restrict__ qvel_in,
@@ -265,6 +292,7 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
   Contact cp;
   cp.h = h; cp.kn = T[O_KN]; cp.kd = T[O_KD]; cp.mdv = T[O_MAX_DEPEN_VEL];
   cp.hc_vel = T[O_HC_VEL]; cp.hc_cap = T[O_HC_CAP]; cp.acc_units = T[O_ACC_UNITS] != 0.f;
+  cp.fv = T[O_FRICTION_VEL];
 
   float q[NQ], qd[NV], tau[NJ];
 #pragma unroll
@@ -342,14 +370,18 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
     bv = v3(box_qvel_in[env], box_qvel_in[E + env], box_qvel_in[2 * E + env]);
     bw = v3(box_qvel_in[3 * E + env], box_qvel_in[4 * E + env], box_qvel_in[5 * E + env]);
     he = load3(T + O_BOX_HE);
-    bim = T[O_BOX_INV_MASS];
-    bIw = rotate_tensor(bR, T + O_BOX_INV_INERTIA);
+    if constexpr (!LEGACY) {
+      bim = T[O_BOX_INV_MASS];
+      bIw = rotate_tensor(bR, T + O_BOX_INV_INERTIA);
+    }
   }
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
     WFn w;
-    w.I = rotate_tensor(R[b], T + O_INERTIA_INV_AUG + 9 * b);
-    w.im = T[O_INV_MASS + b];
+    if constexpr (!LEGACY) {
+      w.I = rotate_tensor(R[b], T + O_INERTIA_INV_AUG + 9 * b);
+      w.im = T[O_INV_MASS + b];
+    }
     w.two = false;
     V3 f_sum = v3(0.f, 0.f, 0.f), t_sum = v3(0.f, 0.f, 0.f);
     V3 fb_t = v3(0.f, 0.f, 0.f), fb_f = v3(0.f, 0.f, 0.f);
@@ -360,7 +392,7 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
       const V3 v_w = add(lin(v[b]), cross(ang(v[b]), sub(p_w, base)));
       w.r = sub(p_w, com_w[b]);
       w.two = false;
-      V3 f_pt = contact_force(radius - p_w.z, v3(0.f, 0.f, 1.f), v_w, mu_plane[p], w, cp);
+      V3 f_pt = contact_force<LEGACY>(radius - p_w.z, v3(0.f, 0.f, 1.f), v_w, mu_plane[p], w, cp);
       if (has_box) {
         const V3 local = mtv(bR, sub(p_w, bp));
         const V3 cl = v3(jclip(local.x, -he.x, he.x), jclip(local.y, -he.y, he.y),
@@ -386,8 +418,8 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
         const V3 cpnt = add(bp, mv(bR, surf));
         const V3 r_box = sub(cpnt, bp);
         const V3 v_rel = sub(v_w, add(bv, cross(bw, r_box)));
-        w.two = true; w.rb = r_box; w.bI = bIw; w.bim = bim;
-        const V3 f_bx = contact_force(depth_b, n_w, v_rel, mu_box[p], w, cp);
+        if constexpr (!LEGACY) { w.two = true; w.rb = r_box; w.bI = bIw; w.bim = bim; }
+        const V3 f_bx = contact_force<LEGACY>(depth_b, n_w, v_rel, mu_box[p], w, cp);
         f_pt = add(f_pt, f_bx);
         const V3 tq = cross(r_box, f_bx);
         box_wrench[0] = box_wrench[0] + -tq.x; box_wrench[1] = box_wrench[1] + -tq.y;
@@ -396,12 +428,14 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
       }
       fb_t = add(fb_t, cross(sub(p_w, base), f_pt));
       fb_f = add(fb_f, f_pt);
-      f_sum = add(f_sum, f_pt);
-      t_sum = add(t_sum, cross(sub(p_w, pos[b]), f_pt));
+      if constexpr (SENSORS) {
+        f_sum = add(f_sum, f_pt);
+        t_sum = add(t_sum, cross(sub(p_w, pos[b]), f_pt));
+      }
     }
     f_body[b] = make6(fb_t, fb_f);
     const int s = (int)T[O_BODY_SENSOR + b];
-    if (s >= 0) {
+    if (SENSORS && s >= 0) {
       const V3 fl = mtv(R[b], f_sum), tl = mtv(R[b], t_sum);
       float* o = sens_out + (6 * s) * B + i;
       o[0] = fl.x; o[B] = fl.y; o[2 * B] = fl.z; o[3 * B] = tl.x; o[4 * B] = tl.y; o[5 * B] = tl.z;
@@ -573,16 +607,41 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
 extern "C" int substep_table_len(int P) { return FIXED_LEN + 6 * P; }
 
 // Launches on `stream`; allocates nothing.  Returns cudaGetLastError().
+// B1: `legacy` is the table's legacy flag (the caller's host copy of it).
 extern "C" int substep_launch(const void* table, int table_len, int P, int num_ants, int B, int E,
-                              const void* qpos, const void* qvel, const void* tau,
+                              int legacy, const void* qpos, const void* qvel, const void* tau,
                               const void* box_qpos, const void* box_qvel, void* qpos_out,
                               void* qvel_out, void* wrench_out, void* sens_out, void* stream) {
   if (B > 0) {
     const int blocks = (B + THREADS - 1) / THREADS;
-    substep_kernel<<<blocks, THREADS, table_len * sizeof(float), (cudaStream_t)stream>>>(
-        (const float*)table, table_len, P, num_ants, B, E, (const float*)qpos, (const float*)qvel,
+    const size_t smem = table_len * sizeof(float);
+    if (legacy)
+      substep_kernel<true, true><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+          (const float*)table, table_len, P, num_ants, B, E, (const float*)qpos, (const float*)qvel,
+          (const float*)tau, (const float*)box_qpos, (const float*)box_qvel, (float*)qpos_out,
+          (float*)qvel_out, (float*)wrench_out, (float*)sens_out);
+    else
+      substep_kernel<false, true><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+          (const float*)table, table_len, P, num_ants, B, E, (const float*)qpos, (const float*)qvel,
+          (const float*)tau, (const float*)box_qpos, (const float*)box_qvel, (float*)qpos_out,
+          (float*)qvel_out, (float*)wrench_out, (float*)sens_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// B6: the legacy branch without sensors, one box state per articulation
+// (box_qpos [7, B], box_qvel [6, B]).  The table must carry the legacy flag.
+extern "C" int debug_substep_launch(const void* table, int table_len, int P, int B,
+                                    const void* qpos, const void* qvel, const void* tau,
+                                    const void* box_qpos, const void* box_qvel, void* qpos_out,
+                                    void* qvel_out, void* wrench_out, void* stream) {
+  if (B > 0) {
+    const int blocks = (B + THREADS - 1) / THREADS;
+    substep_kernel<true, false><<<blocks, THREADS, table_len * sizeof(float),
+                                  (cudaStream_t)stream>>>(
+        (const float*)table, table_len, P, 1, B, B, (const float*)qpos, (const float*)qvel,
         (const float*)tau, (const float*)box_qpos, (const float*)box_qvel, (float*)qpos_out,
-        (float*)qvel_out, (float*)wrench_out, (float*)sens_out);
+        (float*)qvel_out, (float*)wrench_out, nullptr);
   }
   return (int)cudaGetLastError();
 }

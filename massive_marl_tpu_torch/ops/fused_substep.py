@@ -10,7 +10,14 @@ last substep are kept, as the reference does.
 
 `substep_soa` is the dispatch point: a CUDA tensor goes to the kernel (or
 raises), a CPU tensor goes to the plain version in scalar_phys.  There is no
-other fallback.
+other fallback.  A table baked from `ContactParams(beta=None)` runs the
+kernel's legacy instantiation (the reference's explicit contact branch).
+
+The same source holds B6 (`DebugSubstepKernel`, dispatched by
+`debug_substep_soa`): the counterpart of scripts/debug_fused_tpu.py's
+one-off kernel, B1's body on the legacy branch without sensor outputs, with
+one box state per articulation.  cli/debug_fused.py holds it and B1 against
+the array engine.
 """
 from __future__ import annotations
 
@@ -20,19 +27,41 @@ import dataclasses
 import numpy as np
 import torch
 
+from massive_marl_tpu_torch.envs.ant_scene import box_substep
 from massive_marl_tpu_torch.ops import _build
 from massive_marl_tpu_torch.ops import scalar_phys as sp
-from massive_marl_tpu_torch.phys import engine
 
 NQ, NV, NU = sp.NQ, sp.NV, sp.NJ
 
 
+def _check_operands(expect, dev):
+    for name, (t, shape) in expect.items():
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"substep kernel: {name} must be a contiguous float32 "
+                             f"{shape} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if dev.type != "cuda":
+        raise ValueError("the substep kernel takes CUDA tensors")
+
+
+def _device_table(lib, c: sp.AntConsts, dev):
+    table = c.device_table(dev)
+    if lib.substep_table_len(c.P) != table.numel():
+        raise ValueError(f"constant table has {table.numel()} floats, the kernel "
+                         f"expects {lib.substep_table_len(c.P)} for P={c.P}")
+    return table
+
+
 class SubstepKernel:
-    """ctypes binding of csrc/substep.cu.  `launches` counts kernel launches
-    (and nothing else); the library is built and loaded at first use."""
+    """ctypes binding of csrc/substep.cu's B1 launcher.  `launches` counts
+    kernel launches (and nothing else), `legacy_launches` those of the
+    legacy instantiation among them; the library is built and loaded at
+    first use."""
 
     def __init__(self):
         self.launches = 0
+        self.legacy_launches = 0
         self.build_result = None
         self._lib = None
 
@@ -42,50 +71,83 @@ class SubstepKernel:
             lib = ctypes.CDLL(res.path)
             lib.substep_table_len.argtypes = [ctypes.c_int]
             lib.substep_table_len.restype = ctypes.c_int
-            lib.substep_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 10
+            lib.substep_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                                           + [ctypes.c_void_p] * 10)
             lib.substep_launch.restype = ctypes.c_int
+            lib.debug_substep_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                                                 + [ctypes.c_void_p] * 9)
+            lib.debug_substep_launch.restype = ctypes.c_int
             self._lib, self.build_result = lib, res
         return self._lib
 
-    def __call__(self, table, P, num_ants, qpos, qvel, tau, box_qpos, box_qvel):
-        """table [L]; qpos [15,B], qvel [14,B], tau [8,B]; box_* [7|6, E]
-        (E = B / num_ants).  Returns (qpos', qvel', wrench [6,B], sensors [24,B])."""
+    def __call__(self, c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel):
+        """c: the baked table (its legacy flag picks the instantiation);
+        qpos [15,B], qvel [14,B], tau [8,B]; box_* [7|6, E] (E = B /
+        num_ants).  Returns (qpos', qvel', wrench [6,B], sensors [24,B])."""
         dev = qpos.device
         B, E = qpos.shape[1], box_qpos.shape[1]
-        expect = {"table": (table, (table.numel(),)), "qpos": (qpos, (NQ, B)),
-                  "qvel": (qvel, (NV, B)), "tau": (tau, (NU, B)),
-                  "box_qpos": (box_qpos, (7, E)), "box_qvel": (box_qvel, (6, E))}
-        for name, (t, shape) in expect.items():
-            if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() \
-                    or tuple(t.shape) != shape:
-                raise ValueError(f"substep kernel: {name} must be a contiguous float32 "
-                                 f"{shape} tensor on {dev}, got {t.dtype} "
-                                 f"{tuple(t.shape)} on {t.device}")
-        if dev.type != "cuda":
-            raise ValueError("the substep kernel takes CUDA tensors")
+        _check_operands({"qpos": (qpos, (NQ, B)), "qvel": (qvel, (NV, B)), "tau": (tau, (NU, B)),
+                         "box_qpos": (box_qpos, (7, E)), "box_qvel": (box_qvel, (6, E))}, dev)
         if B != E * num_ants:
             raise ValueError(f"B={B} articulations is not E={E} envs x {num_ants} ants")
         lib = self.load()
-        if lib.substep_table_len(P) != table.numel():
-            raise ValueError(f"constant table has {table.numel()} floats, the kernel "
-                             f"expects {lib.substep_table_len(P)} for P={P}")
+        table = _device_table(lib, c, dev)
         qpos_out = torch.empty_like(qpos)
         qvel_out = torch.empty_like(qvel)
         wrench = torch.empty((6, B), dtype=torch.float32, device=dev)
         sens = torch.empty((6 * sp.NS, B), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.substep_launch(
-            table.data_ptr(), table.numel(), P, num_ants, B, E,
+            table.data_ptr(), table.numel(), c.P, num_ants, B, E, int(c.legacy),
             qpos.data_ptr(), qvel.data_ptr(), tau.data_ptr(), box_qpos.data_ptr(),
             box_qvel.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
             wrench.data_ptr(), sens.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"substep kernel launch failed with CUDA error {err}")
         self.launches += 1
+        self.legacy_launches += int(c.legacy)
         return qpos_out, qvel_out, wrench, sens
 
 
 substep_kernel = SubstepKernel()
+
+
+class DebugSubstepKernel:
+    """ctypes binding of csrc/substep.cu's B6 launcher (the legacy
+    instantiation without sensors; the library is B1's).  `launches` counts
+    its launches and nothing else."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, c: sp.AntConsts, qpos, qvel, tau, box_qpos, box_qvel):
+        """c: a table baked with ContactParams(beta=None); qpos [15,B],
+        qvel [14,B], tau [8,B], box_qpos [7,B], box_qvel [6,B] (read only
+        when the table has a box).  Returns (qpos', qvel', wrench [6,B])."""
+        dev = qpos.device
+        B = qpos.shape[1]
+        _check_operands({"qpos": (qpos, (NQ, B)), "qvel": (qvel, (NV, B)), "tau": (tau, (NU, B)),
+                         "box_qpos": (box_qpos, (7, B)), "box_qvel": (box_qvel, (6, B))}, dev)
+        if not c.legacy:
+            raise ValueError("the debug substep kernel runs the legacy branch: bake the "
+                             "table with ContactParams(beta=None)")
+        lib = substep_kernel.load()
+        table = _device_table(lib, c, dev)
+        qpos_out = torch.empty_like(qpos)
+        qvel_out = torch.empty_like(qvel)
+        wrench = torch.empty((6, B), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.debug_substep_launch(
+            table.data_ptr(), table.numel(), c.P, B, qpos.data_ptr(), qvel.data_ptr(),
+            tau.data_ptr(), box_qpos.data_ptr(), box_qvel.data_ptr(), qpos_out.data_ptr(),
+            qvel_out.data_ptr(), wrench.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"debug substep kernel launch failed with CUDA error {err}")
+        self.launches += 1
+        return qpos_out, qvel_out, wrench
+
+
+debug_substep_kernel = DebugSubstepKernel()
 
 
 def substep_plain(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel):
@@ -104,11 +166,29 @@ def substep_soa(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel):
     """One substep on [field, B] operands: the kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if qpos.device.type == "cuda":
-        return substep_kernel(c.device_table(qpos.device), c.P, num_ants,
-                              qpos, qvel, tau, box_qpos, box_qvel)
+        return substep_kernel(c, num_ants, qpos, qvel, tau, box_qpos, box_qvel)
     if qpos.device.type == "cpu":
         return substep_plain(c, num_ants, qpos, qvel, tau, box_qpos, box_qvel)
     raise ValueError(f"no substep for device {qpos.device}")
+
+
+def debug_substep_plain(c: sp.AntConsts, qpos, qvel, tau, box_qpos, box_qvel):
+    """The plain version of B6 (the legacy branch, box state per
+    articulation) on the same [field, B] operands."""
+    if not c.legacy:
+        raise ValueError("the debug substep runs the legacy branch: bake the table "
+                         "with ContactParams(beta=None)")
+    return substep_plain(c, 1, qpos, qvel, tau, box_qpos, box_qvel)[:3]
+
+
+def debug_substep_soa(c: sp.AntConsts, qpos, qvel, tau, box_qpos, box_qvel):
+    """One legacy-branch substep on [field, B] operands, box state per
+    articulation: B6 for CUDA tensors, its plain version for CPU tensors."""
+    if qpos.device.type == "cuda":
+        return debug_substep_kernel(c, qpos, qvel, tau, box_qpos, box_qvel)
+    if qpos.device.type == "cpu":
+        return debug_substep_plain(c, qpos, qvel, tau, box_qpos, box_qvel)
+    raise ValueError(f"no debug substep for device {qpos.device}")
 
 
 def scene_consts(spec) -> sp.AntConsts:
@@ -128,25 +208,6 @@ def scene_consts(spec) -> sp.AntConsts:
         ant_box_mu=spec.ant_box_mu, limit_k=spec.limit_k, limit_damp=spec.limit_damp,
         box_he=box_he, box_inv=box_inv)
     return sp.bake_consts(spec.ant_sys, params)
-
-
-def box_substep(spec, bq, bv, wrench_sum, h):
-    """One free-body substep of the push-box for every env ([E,7], [E,6]),
-    with the summed ant contact wrench about the box origin folded in."""
-    bsys, cp = spec.box_sys, spec.contact
-    fk_b = engine.fwd_kinematics(bsys, bq, bv)
-    p_b, v_b = engine.points_world(bsys, fk_b)
-    pi_b = engine.point_inertia(bsys, fk_b, p_b)
-    mu_bg = (spec.box_ground_mu if spec.box_ground_mu is not None
-             else engine.combine_mu(bsys.point_friction, spec.plane_friction,
-                                    spec.friction_combine))
-    f_b = engine.contact_plane(p_b, v_b, bsys.point_radius, mu_bg, cp, pi=pi_b, h=h)
-    f_ext_b = engine.accumulate_body_forces(bsys, p_b, f_b, fk_b.base)
-    f_ext_b = [f_ext_b[0] + wrench_sum]
-    gravity = torch.tensor(spec.gravity, dtype=bq.dtype, device=bq.device)
-    bacc = engine.forward_dynamics(bsys, fk_b, bv, bq.new_zeros(bq.shape[:-1] + (0,)),
-                                   f_ext_b, gravity)
-    return engine.integrate(bsys, bq, bv, bacc, h)
 
 
 def fused_scene_step(spec, state, actions: torch.Tensor, consts: sp.AntConsts | None = None):

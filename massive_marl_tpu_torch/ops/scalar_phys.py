@@ -11,9 +11,13 @@ masses), which are computed in float64 and rounded once, as the reference
 bakes them.
 
 Conventions: xyzw quaternions, spatial vectors [angular; linear] about the
-base origin, qvel = [v_base(world), omega(world), hinges].  Only the
-contact branch with the implicit effective-mass normal force (the
-reference's `beta` set) is implemented.
+base origin, qvel = [v_base(world), omega(world), hinges].  Both contact
+branches of the reference are here: with `ContactParams.beta` set, the
+implicit effective-mass normal force with exact-stiction friction; with
+`beta=None` (the table's `legacy` flag), the explicit spring-damper with
+friction ramped over `friction_vel`, which reads no inverse inertia (so a
+box scene may then come without box_inv).  The joint limits are implicit in
+both.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ def table_layout(P: int) -> List[Tuple[str, int]]:
     return [
         ("gravity", 3), ("h", 1), ("h2", 1), ("half_h", 1),
         ("kn", 1), ("kd", 1), ("max_depen_vel", 1), ("hc_vel", 1), ("hc_cap", 1),
-        ("acc_units", 1), ("limit_k", 1), ("limit_damp", 1),
+        ("acc_units", 1), ("legacy", 1), ("friction_vel", 1),
+        ("limit_k", 1), ("limit_damp", 1),
         ("max_lin_vel", 1), ("max_ang_vel", 1), ("max_dof_vel", 1),
         ("has_box", 1), ("box_he", 3), ("box_inv_mass", 1), ("box_inv_inertia", 9),
         ("parent", NB), ("body_sensor", NB), ("point_start", NB + 1), ("chain_mask", NV),
@@ -67,7 +72,8 @@ class SubstepParams:
     limit_k: Optional[float] = None
     limit_damp: Optional[float] = None
     box_he: Optional[Tuple[float, float, float]] = None  # None = no box
-    box_inv: Optional[tuple] = None     # (1/m, 3x3 body-frame inverse inertia)
+    box_inv: Optional[tuple] = None     # (1/m, 3x3 body-frame inverse inertia);
+                                        # not read on the legacy branch
 
 
 def _inv3x3_sym_t(m):
@@ -92,6 +98,7 @@ class AntConsts:
     table: torch.Tensor   # [table_len] float32, CPU
     P: int
     has_box: bool
+    legacy: bool          # the table's legacy flag: the explicit contact branch
     f: dict               # field name -> list of Python floats
     parent: Tuple[int, ...]
     point_body: Tuple[int, ...]
@@ -119,11 +126,10 @@ def bake_consts(sys, params: SubstepParams) -> AntConsts:
         raise ValueError("contact points must be grouped by body in body order")
     P = len(pb)
     cp = params.contact
-    if cp.beta is None:
-        raise NotImplementedError("the legacy beta=None contact branch is not ported")
+    legacy = cp.beta is None
     has_box = params.box_he is not None
-    if has_box and params.box_inv is None:
-        raise ValueError("a box scene needs box_inv")
+    if has_box and params.box_inv is None and not legacy:
+        raise ValueError("a box scene needs box_inv (only the legacy branch reads none)")
     f64 = lambda x: np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x,
                                np.float64)
     mass = f64(sys.mass)
@@ -159,12 +165,14 @@ def bake_consts(sys, params: SubstepParams) -> AntConsts:
               else combine_mu(float(m), params.box_friction, params.friction_combine)
               for m in friction]
     box_he = params.box_he if has_box else (0.0, 0.0, 0.0)
-    box_inv_mass, box_inv_I = params.box_inv if has_box else (0.0, np.zeros((3, 3)))
+    box_inv_mass, box_inv_I = (params.box_inv if has_box and params.box_inv is not None
+                               else (0.0, np.zeros((3, 3))))
 
     values = {
         "gravity": params.gravity, "h": h, "h2": h * h, "half_h": 0.5 * h,
         "kn": cp.stiffness, "kd": cp.damping, "max_depen_vel": cp.max_depen_vel,
         "hc_vel": cp.hc_vel, "hc_cap": cp.hc_cap, "acc_units": float(bool(cp.acc_units)),
+        "legacy": float(legacy), "friction_vel": cp.friction_vel,
         "limit_k": limit_k, "limit_damp": limit_damp,
         "max_lin_vel": MAX_LIN_VEL, "max_ang_vel": MAX_ANG_VEL, "max_dof_vel": MAX_DOF_VEL,
         "has_box": float(has_box), "box_he": box_he, "box_inv_mass": box_inv_mass,
@@ -192,7 +200,7 @@ def bake_consts(sys, params: SubstepParams) -> AntConsts:
     for name, n in table_layout(P):
         fields[name] = flat[off:off + n].astype(np.float64).tolist()
         off += n
-    return AntConsts(table=torch.from_numpy(flat), P=P, has_box=has_box, f=fields,
+    return AntConsts(table=torch.from_numpy(flat), P=P, has_box=has_box, legacy=legacy, f=fields,
                      parent=tuple(sys.parent), point_body=tuple(sys.point_body),
                      point_sensor=tuple(sys.point_sensor), num_sensors=sys.num_sensors,
                      body_of_dof=tuple(body_of_dof),
@@ -339,6 +347,8 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
     h, h2, half_h = f["h"][0], f["h2"][0], f["half_h"][0]
     kn, kd, mdv = f["kn"][0], f["kd"][0], f["max_depen_vel"][0]
     hc_vel, hc_cap, acc_units = f["hc_vel"][0], f["hc_cap"][0], bool(f["acc_units"][0])
+    clamp = not c.legacy          # the reference's `clamp = beta is not None`
+    fv = f["friction_vel"][0]
     limit_k, limit_damp = f["limit_k"][0], f["limit_damp"][0]
     gravity = tuple(f["gravity"])
     mass, armature, damping = f["mass"], f["armature"], f["damping"]
@@ -367,6 +377,10 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
 
     zero = qpos[0] * 0.0
     one = zero + 1.0
+    # the contact force's divisors as device tensors: torch on CUDA divides
+    # by a Python float as a product with its reciprocal, one rounding away
+    # from the kernel's (and the reference's) division
+    fv_t, hc_t = zero + fv, zero + max(hc_vel, 1e-9)
     e = [(one, zero, zero), (zero, one, zero), (zero, zero, one)]
     phi = [(zero, zero, zero, *e[k]) for k in range(3)]
     phi += [(*e[k], zero, zero, zero) for k in range(3)]
@@ -391,12 +405,15 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
         bv = (box_qvel[0], box_qvel[1], box_qvel[2])
         bw = (box_qvel[3], box_qvel[4], box_qvel[5])
         box_he = f["box_he"]
-        bim = f["box_inv_mass"][0]
-        bIinvw = m33_mmt(m33_mm(bR, _rows3(f["box_inv_inertia"], 0)), bR)
+        if clamp:
+            bim = f["box_inv_mass"][0]
+            bIinvw = m33_mmt(m33_mm(bR, _rows3(f["box_inv_inertia"], 0)), bR)
 
     # per-body world inverse inertia (armature-augmented) for the contact
-    # effective mass
-    I_inv_w = [m33_mmt(m33_mm(R[b], _rows3(f["inertia_inv_aug"], b)), R[b]) for b in range(nb)]
+    # effective mass; the legacy branch reads none
+    if clamp:
+        I_inv_w = [m33_mmt(m33_mm(R[b], _rows3(f["inertia_inv_aug"], b)), R[b])
+                   for b in range(nb)]
 
     for p_i in range(c.P):
         b = c.point_body[p_i]
@@ -405,16 +422,18 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
         vb = v[b]
         v_w = v3_add((vb[3], vb[4], vb[5]),
                      v3_cross((vb[0], vb[1], vb[2]), v3_sub(p_w, base)))
-        r_pt = v3_sub(p_w, com_w[b])
-        inv_m = f["inv_mass"][b]
+        w_fn = None
+        if clamp:
+            r_pt = v3_sub(p_w, com_w[b])
+            inv_m = f["inv_mass"][b]
 
-        def w_fn(d, _r=r_pt, _I=I_inv_w[b], _im=inv_m):
-            rxd = v3_cross(_r, d)
-            return _im + v3_dot(rxd, m33_mv(_I, rxd))
+            def w_fn(d, _r=r_pt, _I=I_inv_w[b], _im=inv_m):
+                rxd = v3_cross(_r, d)
+                return _im + v3_dot(rxd, m33_mv(_I, rxd))
 
         depth = radius - p_w[2]
         f_pt = _contact_force(depth, (zero, zero, one), v_w, f["mu_plane"][p_i],
-                              kn, kd, w_fn, h, mdv, acc_units, hc_vel, hc_cap)
+                              kn, kd, fv_t, w_fn, h, mdv, acc_units, hc_vel, hc_t, hc_cap)
 
         if has_box:
             rel = v3_sub(p_w, bp)
@@ -443,13 +462,15 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
             v_box_pt = v3_add(bv, v3_cross(bw, v3_sub(cpnt, bp)))
             v_rel = v3_sub(v_w, v_box_pt)
             r_box = v3_sub(cpnt, bp)
-
-            def w_fn_box(d, _wf=w_fn, _r=r_box):
-                rxd = v3_cross(_r, d)
-                return _wf(d) + bim + v3_dot(rxd, m33_mv(bIinvw, rxd))
+            w_fn_box = None
+            if clamp:
+                def w_fn_box(d, _wf=w_fn, _r=r_box):
+                    rxd = v3_cross(_r, d)
+                    return _wf(d) + bim + v3_dot(rxd, m33_mv(bIinvw, rxd))
 
             f_bx = _contact_force(depth_b, n_w, v_rel, f["mu_box"][p_i],
-                                  kn, kd, w_fn_box, h, mdv, acc_units, hc_vel, hc_cap)
+                                  kn, kd, fv_t, w_fn_box, h, mdv, acc_units, hc_vel, hc_t,
+                                  hc_cap)
             f_pt = v3_add(f_pt, f_bx)
             tq = v3_cross(r_box, f_bx)
             box_wrench = s6_add(box_wrench,
@@ -553,19 +574,25 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
     return nqp, nqv, box_wrench, sensor_out
 
 
-def _contact_force(depth, normal, v_rel, friction, kn, kd, w_fn, h, mdv,
-                   acc_units, hc_vel, hc_cap):
+def _contact_force(depth, normal, v_rel, friction, kn, kd, fv, w_fn, h, mdv,
+                   acc_units, hc_vel, hc_div, hc_cap):
     """Implicit spring-damper normal force along the point's effective mass
-    plus exact-stiction Coulomb friction (w_fn(d) = inverse mass along d)."""
+    plus exact-stiction Coulomb friction (w_fn(d) = inverse mass along d);
+    with w_fn None, the legacy explicit spring-damper with friction ramped
+    over fv.  fv and hc_div (= max(hc_vel, 1e-9)) are tensors."""
     active = (depth > 0.0).to(depth.dtype)
     vn = v3_dot(v_rel, normal)
     vt = v3_sub(v_rel, v3_scale(normal, vn))
     vt_norm = torch.sqrt(v3_dot(vt, vt) + 1e-12)
+    if w_fn is None:
+        fn = torch.clamp(kn * depth - kd * vn, min=0.0) * active
+        ft_mag = torch.minimum(friction * fn, friction * fn * vt_norm / fv)
+        return v3_sub(v3_scale(normal, fn), v3_scale(vt, ft_mag / vt_norm))
     w_n = w_fn(normal)
     t_dir = v3_scale(vt, 1.0 / vt_norm)
     w_t = w_fn(t_dir)
     if hc_vel != 0.0:
-        fac = torch.clamp(1.0 - vn / max(hc_vel, 1e-9), min=0.0)
+        fac = torch.clamp(1.0 - vn / hc_div, min=0.0)
         if hc_cap > 0.0:
             fac = torch.clamp(fac, max=hc_cap)
         if hc_vel > 0.0:

@@ -1,14 +1,17 @@
-"""The substep kernel's wrapper and its device rule.
+"""The substep kernels' wrappers (B1, and B6 on B1's legacy branch) and
+their device rule.
 
 CPU tests: a CPU tensor takes the plain version and never touches the
-launch counter; the kernel wrapper refuses CPU tensors; entry points raise
-when CUDA is absent and the caller did not ask for the CPU.
+launch counters; the kernel wrappers refuse CPU tensors; entry points raise
+when CUDA is absent and the caller did not ask for the CPU; a legacy table
+(ContactParams(beta=None)) bakes without the box's inverse inertia.
 
-Tests marked `cuda` hold the kernel against its plain version on the card
-and skip without one.  They import nothing of JAX, so on the GPU host they
+Tests marked `cuda` hold B1 (both branches) and B6 against their plain
+versions on the card and skip without one.  They import nothing of JAX, so on the GPU host they
 run without the repository's JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fused_substep.py -m cuda
 """
+import dataclasses
 import pathlib
 import re
 
@@ -20,7 +23,9 @@ import massive_marl_tpu_torch
 from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
 from massive_marl_tpu_torch.ops import fused_substep as fs
 from massive_marl_tpu_torch.ops import scalar_phys as sp
+from massive_marl_tpu_torch.cli import debug_fused
 from massive_marl_tpu_torch.phys import mjcf
+from massive_marl_tpu_torch.phys.engine import ContactParams
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +73,29 @@ def test_cpu_tensors_take_the_plain_version(env_cpu):
     assert [tuple(o.shape) for o in out] == [(15, 30), (14, 30), (6, 30), (24, 30)]
     assert all(torch.isfinite(o).all() for o in out)
     with pytest.raises(ValueError, match="CUDA"):
-        fs.substep_kernel(c.table, c.P, 10, *ops)
+        fs.substep_kernel(c, 10, *ops)
+
+
+def test_legacy_table_needs_no_box_inverse_inertia(env_cpu):
+    legacy = env_cpu.spec.contact._replace(beta=None)
+    params = sp.SubstepParams(h=0.005, contact=legacy, box_he=(0.5, 14.0, 0.5))
+    c = sp.bake_consts(env_cpu.spec.ant_sys, params)
+    assert c.legacy and c.f["legacy"] == [1.0] and c.f["box_inv_mass"] == [0.0]
+    assert c.f["friction_vel"][0] == pytest.approx(legacy.friction_vel)
+    assert not env_cpu.substep_consts.legacy and env_cpu.substep_consts.f["legacy"] == [0.0]
+    with pytest.raises(ValueError, match="box_inv"):
+        sp.bake_consts(env_cpu.spec.ant_sys, dataclasses.replace(params, contact=ContactParams()))
+
+
+def test_debug_kernel_refuses_cpu_tensors_and_clamped_tables(env_cpu):
+    sys, hinge = env_cpu.spec.ant_sys, env_cpu.model.init_hinge
+    ops = [x.t().contiguous() for x in debug_fused.make_states(sys, hinge, 8, "standing")]
+    before = fs.debug_substep_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.debug_substep_kernel(debug_fused.kernel_consts(sys, True, False), *ops)
+    with pytest.raises(ValueError, match="legacy"):
+        fs.debug_substep_soa(debug_fused.kernel_consts(sys, True, True), *ops)
+    assert fs.debug_substep_kernel.launches == before
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -107,22 +134,56 @@ def test_cuda_table_offsets_match_python_layout():
     assert list(py)[-4:] == point_fields and py["O_POINT_LOCAL"] == cu["FIXED_LEN"]
 
 
+def _assert_close_masked(got, ref, names, tol):
+    """Same non-finite mask; the finite values within (rtol, atol)."""
+    for name, g, r, (rtol, atol) in zip(names, got, ref, tol):
+        g, r = g.cpu().numpy(), r.cpu().numpy()
+        np.testing.assert_array_equal(np.isfinite(g), np.isfinite(r), err_msg=name)
+        fin = np.isfinite(r)
+        np.testing.assert_allclose(g[fin], r[fin], rtol=rtol, atol=atol, err_msg=name)
+
+
+TOL = [(2e-4, 2e-4), (5e-3, 5e-3), (5e-3, 5e-2), (5e-3, 5e-2)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("legacy", [False, True])
 @pytest.mark.parametrize("has_box", [True, False])
-def test_kernel_matches_plain_on_card(cuda, has_box):
+def test_kernel_matches_plain_on_card(cuda, has_box, legacy):
     env = TenAntEnv(device=cuda)
     spec = env.spec if has_box else env.spec._replace(box_sys=None, box_half_extents=None)
+    if legacy:
+        spec = spec._replace(contact=spec.contact._replace(beta=None))
     c = fs.scene_consts(spec)
+    assert c.legacy == legacy
     ops = _states(env, 24, 1, cuda)
-    before = fs.substep_kernel.launches
-    got = fs.substep_kernel(c.device_table(cuda), c.P, 10, *ops)
+    before = fs.substep_kernel.launches, fs.substep_kernel.legacy_launches
+    got = fs.substep_kernel(c, 10, *ops)
     torch.cuda.synchronize()
-    assert fs.substep_kernel.launches == before + 1
+    assert (fs.substep_kernel.launches, fs.substep_kernel.legacy_launches) == \
+        (before[0] + 1, before[1] + int(legacy))
     ref = fs.substep_plain(c, 10, *ops)
-    tol = [(2e-4, 2e-4), (5e-3, 5e-3), (5e-3, 5e-2), (5e-3, 5e-2)]
-    for name, g, r, (rtol, atol) in zip(["qpos", "qvel", "wrench", "sensors"], got, ref, tol):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=rtol, atol=atol,
-                                   err_msg=name)
+    _assert_close_masked(got, ref, ["qpos", "qvel", "wrench", "sensors"], TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", sorted(debug_fused.SCENARIOS))
+@pytest.mark.parametrize("use_box", [True, False])
+def test_debug_kernel_matches_plain_on_card(cuda, scenario, use_box):
+    """B6 at B = 1029 (a ragged last block): the legacy scenarios drive qvel
+    onto the integrator's clamps, so the non-finite masks must agree too."""
+    env = TenAntEnv(device=cuda)
+    sys, hinge = env.spec.ant_sys, env.model.init_hinge
+    c = debug_fused.kernel_consts(sys, use_box, clamp=False)
+    ops = [x.t().contiguous() for x in debug_fused.make_states(sys, hinge, 1029, scenario, 3,
+                                                                cuda)]
+    before = fs.debug_substep_kernel.launches, fs.substep_kernel.launches
+    got = fs.debug_substep_kernel(c, *ops)
+    torch.cuda.synchronize()
+    assert (fs.debug_substep_kernel.launches, fs.substep_kernel.launches) == \
+        (before[0] + 1, before[1])
+    ref = fs.debug_substep_plain(c, *ops)
+    _assert_close_masked(got, ref, ["qpos", "qvel", "wrench"], TOL)
 
 
 @pytest.mark.cuda
@@ -131,6 +192,24 @@ def test_kernel_rejects_bad_operands(cuda):
     c = env.substep_consts
     qpos, qvel, tau, bq, bv = _states(env, 4, 2, cuda)
     with pytest.raises(ValueError, match="qvel"):
-        fs.substep_kernel(c.device_table(cuda), c.P, 10, qpos, qvel[:, :-1], tau, bq, bv)
+        fs.substep_kernel(c, 10, qpos, qvel[:, :-1], tau, bq, bv)
     with pytest.raises(ValueError, match="P="):
-        fs.substep_kernel(c.device_table(cuda), c.P + 1, 10, qpos, qvel, tau, bq, bv)
+        fs.substep_kernel(dataclasses.replace(c, P=c.P + 1), 10, qpos, qvel, tau, bq, bv)
+
+
+@pytest.mark.cuda
+def test_debug_kernel_rejects_bad_operands(cuda):
+    env = TenAntEnv(device=cuda)
+    sys, hinge = env.spec.ant_sys, env.model.init_hinge
+    c = debug_fused.kernel_consts(sys, True, clamp=False)
+    qpos, qvel, tau, bq, bv = [x.t().contiguous() for x in
+                               debug_fused.make_states(sys, hinge, 256, "chaotic", 0, cuda)]
+    before = fs.debug_substep_kernel.launches
+    with pytest.raises(ValueError, match="box_qpos"):   # box state per env, not per articulation
+        fs.debug_substep_kernel(c, qpos, qvel, tau, bq[:, :128].contiguous(), bv)
+    with pytest.raises(ValueError, match="tau"):
+        fs.debug_substep_kernel(c, qpos, qvel, tau.double(), bq, bv)
+    with pytest.raises(ValueError, match="legacy"):
+        fs.debug_substep_kernel(debug_fused.kernel_consts(sys, True, clamp=True),
+                                qpos, qvel, tau, bq, bv)
+    assert fs.debug_substep_kernel.launches == before

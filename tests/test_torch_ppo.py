@@ -138,5 +138,7 @@ def test_cli_trains_tenant_ppo(capsys):
     from massive_marl_tpu_torch.cli.train import main
     main(["--device", "cpu", "--num_envs", "2", "--max_iterations", "1"])
     assert "it 0: rew/step" in capsys.readouterr().out
+    with pytest.raises(SystemExit):   # OneAnt is single-agent: PPO only
+        main(["--task", "OneAnt", "--algo", "mappo", "--device", "cpu"])
     with pytest.raises(SystemExit):
-        main(["--task", "OneAnt", "--device", "cpu"])
+        main(["--task", "TenAnt", "--fused_kernel", "2", "--device", "cpu"])
