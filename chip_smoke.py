@@ -25,14 +25,18 @@ Phases; any failure raises and the script exits non-zero:
      layer shapes (actor layer 0 128->512, hidden 512->512, critic layer 0
      512->512 with the share obs read by every agent), B = 32,768 rows, for
      the stacked schedule's N = 10 agents and the sequential schedule's
-     N = 1: every output, with tolerances; each kernel's time beside its
-     bound and its plain version's time, and a bf16 torch.bmm of the same
-     product alone as a note;
+     N = 1: every output, with tolerances, and B3 twice for the same bits;
+     each kernel's time beside its bound and its plain version's time; as
+     notes, bf16 torch.bmm of B2's product and of B3's two products; at
+     the main shape (hidden, N = 1) B3's device time per pass (row pass, dW
+     pass, reductions) from a short torch.profiler window;
   4b. hold B4/B5 against their plain versions at the update's two tower
      shapes (actor: Din 128 -> 512, critic: Din 512 with the share obs read
      by every agent; 3 layers), N = 1 and N = 10, B = 32,768, dx both ways;
      B5 twice for the same bits; each kernel's time beside its bound and
-     its plain version's, and three chained B2 (B3) launches as a note;
+     its plain version's, and three chained B2 (B3) launches as a note; at
+     the main shape (critic, N = 1) B5's device time per pass and its nine
+     products as bf16 torch.bmm (a note);
   5. TenAnt + PPO at full width (E=4096, hidden 1024-1024-512, nsteps 8,
      5 epochs x 4 minibatches): 1 warm-up iteration through PPO.run and 3
      timed iterations through PPO.rollout_phase / update_phase;
@@ -165,6 +169,54 @@ def time_cuda_ms(fn, reps, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+PASS_GROUPS = (("row pass", ("ln_bwd_rows_wgmma", "tower_bwd_wgmma")),
+               ("dW pass", ("dw_wgmma", "reduce_dw_kernel")),
+               ("partial-sum reductions", ("colsum_partial_kernel", "colsum_final_kernel")))
+
+
+def pass_split(fn, reps=3):
+    """Device ms per call of each pass of a backward kernel (B3 or B5), from
+    a short torch.profiler window of `reps` calls after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {g: 0.0 for g, _ in PASS_GROUPS}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            g = next((g for g, keys in PASS_GROUPS if any(k in ev.name for k in keys)), None)
+            if g is None:
+                raise AssertionError(f"pass_split: unexpected kernel {ev.name}")
+            split[g] += ev.time_range.elapsed_us() / 1e3 / reps
+    if not all(split.values()):
+        raise AssertionError(f"pass_split: a pass did not run on the card: {split}")
+    return split
+
+
+def host_ms(fn, reps=20):
+    """Host milliseconds per call of fn, which only enqueues work (no
+    synchronize inside the timed loop): the wrapper's checks, allocations,
+    tensor-map encodes and launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def fmt_split(split):
+    return ", ".join(f"{g} {ms:.4f} ms" for g, ms in split.items())
 
 
 def check_kernel(fs, c, ops, label):
@@ -441,7 +493,10 @@ def check_mlp(fm, d, label):
     torch.cuda.synchronize()
     yp, ap = mlp_fwd(fm, d, plain=True)
     got = mlp_bwd(fm, d, ap)
+    again = mlp_bwd(fm, d, ap)
     torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"{label}: B3 gave other bits on a second run")
     ref = mlp_bwd(fm, d, ap, plain=True)
     worst = {"fwd": 0.0, "bwd": 0.0}
     for name, g, r in zip(("y", "a") + MLP_OUTPUTS, (y, a) + tuple(got), (yp, ap) + tuple(ref)):
@@ -460,6 +515,7 @@ def check_mlp(fm, d, label):
             raise AssertionError(f"{label}: kernel {name} disagrees with the plain version")
         kind = "fwd" if name in ("y", "a") else "bwd"
         worst[kind] = max(worst[kind], err.max().item())
+    print(f"  {label:22s} B3 twice (need_dx both times): the same bits")
     return worst
 
 
@@ -493,7 +549,17 @@ def mlp_phase(fm, dev):
                       f"by {row[kind + '_by']} ({nbytes / 1e6:.1f} MB, {mm / 1e9:.2f} GFLOP "
                       f"on tensor cores), plain {row[kind + '_plain']:.3f} ms")
             print(f"  {label:22s} note: bf16 torch.bmm of the product alone {row['bmm']:.4f} ms")
+            dh16, xt = d["dy"], d["x"].contiguous()
+            w_t = d["w16"].transpose(1, 2)
+            row["bwd_bmm"] = time_cuda_ms(lambda: (torch.bmm(dh16, w_t),
+                                                   torch.bmm(xt.transpose(1, 2), dh16)), 20)
+            print(f"  {label:22s} note: B3's two products dh16 @ w^T and xt^T @ dh16 as bf16 "
+                  f"torch.bmm {row['bwd_bmm']:.4f} ms (a yardstick; no one call computes B3)")
             if N == 1 and name == "hidden":
+                row["split"] = pass_split(lambda: mlp_bwd(fm, d, a))
+                print(f"  {label:22s} B3 by pass (profiler, per call): {fmt_split(row['split'])}; "
+                      f"host {host_ms(lambda: mlp_bwd(fm, d, a)):.4f} ms per call (enqueue: checks, "
+                      f"allocations, 4 tensor-map encodes, 5 launches)")
                 main = row
             del d, a
             torch.cuda.empty_cache()
@@ -644,6 +710,20 @@ def tower_phase(fm, dev):
                   f"three chained B3 {row['chain_bwd']:.4f} ms (no one PyTorch call computes "
                   f"the tower)")
             if N == 1 and name == "critic tower":
+                row["split"] = pass_split(lambda: fm.tower_bwd_kernel(d["dy"], *args))
+                print(f"  {label:22s} B5 by pass (profiler, per call): {fmt_split(row['split'])}; "
+                      f"host {host_ms(lambda: fm.tower_bwd_kernel(d['dy'], *args)):.4f} ms per call "
+                      f"(enqueue: checks, allocations, 13 tensor-map encodes, 9 launches)")
+                xs = [d["x"].contiguous()] + [h for h, _ in acts[:-1]]
+
+                def nine():   # forward h_l, dh16_l @ W_l^T, x_l^T @ dh16_l per layer
+                    for li in range(TOWER_L):
+                        torch.bmm(xs[li], d["ws16"][li])
+                        torch.bmm(d["dy"], d["ws16"][li].transpose(1, 2))
+                        torch.bmm(xs[li].transpose(1, 2), d["dy"])
+                row["bmm9"] = time_cuda_ms(nine, 20)
+                print(f"  {label:22s} note: B5's nine products as bf16 torch.bmm "
+                      f"{row['bmm9']:.4f} ms (a yardstick; no one call computes B5)")
                 main = row
             del d, acts, ins
             torch.cuda.empty_cache()
@@ -669,12 +749,11 @@ def timed_iteration(trainer):
 # (first match wins: the tower's names contain B2's and B3's)
 KERNEL_GROUPS = (("B1 substep kernel", ("substep_kernel",)),
                  ("B4 mlp_tower fwd", ("tower_fwd_kernel",)),
-                 ("B5 mlp_tower bwd (row pass, sums)", ("tower_bwd_rows_kernel",
-                                                        "tower_reduce_vec_kernel")),
+                 ("B5 mlp_tower bwd row pass", ("tower_bwd_wgmma",)),
                  ("B2 dense_elu_ln fwd", ("fwd_kernel",)),
-                 ("B3 dense_elu_ln bwd (row pass, sums)", ("bwd_rows_kernel",
-                                                           "reduce_vec_kernel")),
-                 ("B3/B5 dW pass", ("bwd_dw_kernel", "reduce_dw_kernel")),
+                 ("B3 dense_elu_ln bwd row pass", ("ln_bwd_rows_wgmma",)),
+                 ("B3/B5 dW pass", ("dw_wgmma", "reduce_dw_kernel")),
+                 ("B3/B5 partial-sum reductions", ("colsum_partial_kernel", "colsum_final_kernel")),
                  ("GEMM", ("gemm", "nvjet", "cutlass", "gemv")),
                  ("optimizer (foreach)", ("multi_tensor_apply",)),
                  ("reductions", ("reduce_kernel",)),
@@ -775,7 +854,7 @@ def build_all(libs):
         print(f"  {res.path}: {res.seconds:.1f} s nvcc")
         for line in res.log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "stack frame",
-                                       "error")):
+                                       "error", "C75")):
                 print("  ptxas:", line.strip())
 
 

@@ -1,5 +1,6 @@
 // The whole MLPBase tower, forward (B4) and backward (B5), for agent-stacked
-// operands (CUDA C++ for sm_90a, bf16 tensor cores via wmma).
+// operands (CUDA C++ for sm_90a: B4 on wmma; B5 on wgmma with TMA-fed rings
+// of shared-memory tiles).
 //
 // Replaces the TPU kernels massive_marl_tpu/ops/fused_mlp.py::
 // _tower_fwd_kernel (B4) and ::_tower_bwd_kernel (B5).  The plain PyTorch
@@ -31,12 +32,20 @@
 //     that, after the product, holds the f32 tile (128 KB at H = 512) for the
 //     bias/ELU/LayerNorm epilogue, which writes the next layer's input in
 //     place.  Nothing but the last y leaves the block: no residuals.
-//   * B5: a row pass (tower_bwd_rows_kernel) runs that forward for its 64
-//     rows, writing each layer's input x_l (l >= 1) and a_l to a scratch
-//     buffer, then the whole backward chain with dy held in shared memory as
-//     f32.  It overwrites a_l with dh16_l in place and writes one partial
-//     column sum per block for every db, dgamma, dbeta, dg0 and db0.  Then
-//     B3's dW pass (fused_mlp_common.cuh) runs once per layer on x_l and
+//   * B5: a row pass (tower_bwd_wgmma_kernel) owns 64 rows.  A producer
+//     warp streams W_0 .. W_{L-1} and then W_{L-1}^T .. W_0^T by TMA
+//     through a ring of four 32 KB tiles; two consumer warpgroups each
+//     compute half the columns of every product on wgmma, the layer input
+//     (x_l, then dh16_l) resident in shared memory as the A operand and
+//     each product's f32 result held in the accumulators (64 x 512 f32 over
+//     the two warpgroups is 128 registers a thread; setmaxnreg gives the
+//     consumers 232).  Only per-row statistics cross between the warpgroups,
+//     through shared memory: no f32 dy tile.  The forward writes x_l (l >=
+//     1) and a_l to a scratch buffer; the backward reads a_l back by TMA,
+//     overwrites it with dh16_l, keeps dy f32 in the accumulators from one
+//     layer to the next, and writes one partial column sum per block for
+//     every db, dgamma, dbeta, dg0 and db0.  Then the dW pass
+//     (fused_mlp_common.cuh, shared with B3) runs once per layer on x_l and
 //     dh16_l, and fixed-order reductions sum the partials: no atomics, the
 //     same bits every run.  The scratch lives only for the backward call.
 //
@@ -45,11 +54,14 @@
 // (B5, with the forward it recomputes) operations per byte that must move
 // at the main path's critic tower (B = 32,768, Din = H = 512, L = 3), above
 // the ~295 operations per byte at which the tensor cores and not device
-// memory bound a kernel: both are bound by operations.  This first version
-// reaches nowhere near that: wmma from shared memory with no cp.async/TMA
-// pipeline and no wgmma, one 64-row block per SM (198-209 KB of shared
-// memory), and B5's scratch sends x_l, a_l and dh16_l through device memory
-// and re-reads them in the dW pass; that is a later PR's work.
+// memory bound a kernel: both are bound by operations.  B4 (unchanged,
+// wmma from shared memory, no pipeline) is far from that.  B5's products
+// now run on wgmma fed by TMA; what still holds it back is the work between
+// them.  The LayerNorm/ELU epilogues (row statistics across the two
+// warpgroups, column sums by shuffles, scratch stores) run on the same warps
+// as the products with nothing to overlap them at one block per SM, and
+// every 64-row block streams all of W (~3 MB at the critic tower) from L2
+// again.
 
 #include "fused_mlp_common.cuh"
 
@@ -66,28 +78,18 @@ struct Layers {
 
 __host__ __device__ inline size_t round128(size_t n) { return (n + 127) & ~size_t(127); }
 
-// Shared memory of a block, D = max(Din, H):
-//   R1  W K-tiles, then the f32 product tile [BM][H + 4]; in B5 also dy
-//       [BM][D + 4] f32 and the warps' partial sums [8][3][H];
-//   R2  the layer input [BM][D + 8] bf16; in B5 also dh16;
-//   R3  (B5) W^T tiles [DC][KT + 8] bf16 for the dx product.
+// Shared memory of a B4 block, D = max(Din, H):
+//   R1  W K-tiles, then the f32 product tile [BM][H + 4];
+//   R2  the layer input [BM][D + 8] bf16.
 struct Regions {
-  size_t r1, r2, r3;
-  __host__ __device__ Regions(int Din, int H, bool bwd) {
+  size_t r1, r2;
+  __host__ __device__ Regions(int Din, int H) {
     const size_t D = Din > H ? Din : H;
-    size_t a = (size_t)BM * (H + 4) * 4, b = (size_t)KT * (H + 8) * 2;
-    r1 = a > b ? a : b;
-    if (bwd) {
-      a = (size_t)BM * (D + 4) * 4;
-      b = (size_t)8 * 3 * H * 4;
-      r1 = r1 > a ? r1 : a;
-      r1 = r1 > b ? r1 : b;
-    }
-    r1 = round128(r1);
+    const size_t a = (size_t)BM * (H + 4) * 4, b = (size_t)KT * (H + 8) * 2;
+    r1 = round128(a > b ? a : b);
     r2 = round128((size_t)BM * (D + 8) * 2);
-    r3 = bwd ? round128((size_t)DC * (KT + 8) * 2) : 0;
   }
-  __host__ __device__ size_t total() const { return r1 + r2 + r3; }
+  __host__ __device__ size_t total() const { return r1 + r2; }
 };
 
 // The forward of all L layers for the block's BM rows.  Rows past B are
@@ -220,216 +222,452 @@ tower_fwd_kernel(int B, int Din, int L, long long sx, const bf16* __restrict__ x
                  bf16* __restrict__ y) {
   constexpr int H = 128 * HK;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Regions reg(Din, H, false);
+  const Regions reg(Din, H);
   const int LDX = (Din > H ? Din : H) + 8;
   tower_forward<HK>(B, Din, L, sx, x, g0, b0, p, smem, reinterpret_cast<bf16*>(smem + reg.r1),
                     LDX, y, nullptr, nullptr);
 }
 
 // ---------------------------------------------------------------------------
-// B5: the row pass (forward recompute and the backward chain)
+// B5: the row pass (forward recompute and the backward chain on wgmma)
 // ---------------------------------------------------------------------------
 
-template <int HK>
-__global__ void __launch_bounds__(THREADS)
-tower_bwd_rows_kernel(int B, int Din, int L, long long sx, const bf16* __restrict__ dy,
-                      const bf16* __restrict__ x, const float* __restrict__ g0,
-                      const float* __restrict__ b0, Layers p, bf16* __restrict__ dx,
-                      bf16* __restrict__ ad, bf16* __restrict__ xs, float* __restrict__ part) {
-  constexpr int H = 128 * HK;
-  constexpr int LDW = KT + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Regions reg(Din, H, true);
-  const int D = Din > H ? Din : H;
-  const int LDX = D + 8, LDY = D + 4;
-  float* dys = reinterpret_cast<float*>(smem);                       // [BM][LDY] dy (f32)
-  float* red = dys;                                                  // [8][3][H] partials
-  bf16* Xs = reinterpret_cast<bf16*>(smem + reg.r1);                 // [BM][LDX] input, dh16
-  bf16* Ws = reinterpret_cast<bf16*>(smem + reg.r1 + reg.r2);        // [DC][LDW] w^T tile
-  const int n = blockIdx.y, N = gridDim.y, blk = blockIdx.x, row0 = blk * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp >> 2, wc = warp & 3;
-  const size_t NBH = (size_t)N * B * H;
-  const int P = 3 * L * H + 2 * Din;
-  float* pn = part + ((size_t)n * gridDim.x + blk) * P;
+constexpr int T5_KD = 32;     // depth of a W tile
+constexpr int T5_STAGES = 4;
+constexpr uint32_t T5_STAGE_BYTES = 32 * 512 * 2;  // a W tile: 32 x H (forward) or Din_l x 32
+constexpr int T5_NB = 4;      // 64-column accumulator blocks per consumer warpgroup (256 columns)
 
-  tower_forward<HK>(B, Din, L, sx, x, g0, b0, p, smem, Xs, LDX, nullptr, ad, xs);
+// Shared memory of the row pass, D = max(Din, H):
+//   act    the layer input x_l, then dh16_l: [64 rows][K] bf16, K-major with
+//          the 128-byte swizzle in atoms of 64 columns (the A operand of
+//          every product; K = Din or H);
+//   ring   T5_STAGES W tiles, loaded by TMA: forward [32 k][H] MN-major in
+//          64-column boxes (128-byte swizzle), backward [Din_l][32 k]
+//          K-major in 128-row boxes (64-byte swizzle);
+//   stats  per-row sums of the two warpgroups, two alternating buffers;
+//   cred   the warps' column sums [8][3][256] f32;
+//   vec    the current layer's bias, LayerNorm scale and bias, and gamma0
+//          (at the start beta0 in the bias slot), [4][512] f32;
+//   bars   full/empty per ring stage, and the barrier of a_l's TMA load.
+struct TowerSmem {
+  size_t ring, stats, cred, vec, bars, total;
+};
 
-  for (int idx = tid; idx < BM * H; idx += THREADS) {  // the last layer's dy, f32
-    const int r = idx / H, c = idx % H, gr = row0 + r;
-    dys[r * LDY + c] = gr < B ? __bfloat162float(dy[((size_t)n * B + gr) * H + c]) : 0.f;
+__host__ __device__ inline TowerSmem tower_layout(int Din, int H) {
+  const size_t D = Din > H ? Din : H;
+  TowerSmem s;
+  s.ring = align1k((size_t)BM * D * 2);
+  s.stats = s.ring + (size_t)T5_STAGES * T5_STAGE_BYTES;
+  s.cred = s.stats + 2 * 2 * 64 * 4;
+  s.vec = s.cred + (size_t)8 * 3 * 256 * 4;
+  s.bars = s.vec + 4 * 512 * 4;
+  s.total = s.bars + (2 * T5_STAGES + 1) * 8;
+  return s;
+}
+
+// The element (row, column) of a warpgroup accumulator block: register i of
+// block j of a thread at quad row r (rows r and r + 8).
+#define T5_COL(cb, j, i) ((cb) + (j) * 64 + ((i) >> 2) * 8 + (lane & 3) * 2 + ((i) & 1))
+
+// One product of a 64-row block, run by both consumer warpgroups: acc =
+// act[64 x K] @ B over K in ring tiles of T5_KD, nb 64-column blocks per
+// warpgroup.  BMN: the tiles are [T5_KD][width] MN-major (forward, W_l as
+// stored), else [width][T5_KD] K-major (backward, W_l^T); width is the full
+// product width, the warpgroup's half starting at column wg * nb * 64.
+template <bool BMN>
+__device__ __forceinline__ void tower_product(float (&acc)[T5_NB][32], int nb, uint32_t act, int K,
+                                              Ring& ring, int width, int wg, bool elected) {
+  constexpr uint32_t FBOX = T5_KD * 128;  // a forward box: 64 columns x T5_KD rows
+  int prev = -1;
+  for (int ks = 0; ks < K / T5_KD; ++ks) {
+    ring.consumer_wait();
+    const uint32_t b = smem_u32(ring.buf());
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < T5_KD / 16; ++k) {
+      const int s = ks * 2 + k;  // k16 step: atom s / 4, 32 B per step inside it
+      const uint64_t da = make_desc_sw(act + (s >> 2) * (BM * 128) + (s & 3) * 32, 16, 1024, 1);
+      if (BMN)  // 64-column boxes FBOX apart, 8-row k groups 1024 B apart
+        wgmma_k16<T5_NB, 0, 1>(acc, nb, da,
+                               make_desc_sw(b + wg * nb * FBOX + k * 2048, FBOX, 1024, 1),
+                               FBOX >> 4, (ks | k) != 0);
+      else      // rows of 64 B, 8-row groups 512 B apart, k16 steps 32 B
+        wgmma_k16<T5_NB, 0, 0>(acc, nb, da,
+                               make_desc_sw(b + wg * (width / 2) * 64 + k * 32, 16, 512, 2),
+                               (64 * 64) >> 4, (ks | k) != 0);
+    }
+    wg_commit();
+    wg_wait<1>();  // the step before is done: its stage may be refilled
+    if (prev >= 0) release_stage(&ring.empty[prev], elected);
+    prev = ring.stage;
+    ring.advance();
   }
-  __syncthreads();
+  wg_wait<0>();
+  fence_acc(acc);
+  release_stage(&ring.empty[prev], elected);
+}
 
-  for (int l = L - 1; l >= 0; --l) {
-    bf16* adl = ad + l * NBH + (size_t)n * B * H;  // a_l, overwritten by dh16_l
-    const float* gn = p.g[l] + (size_t)n * H;
+// The bf16 pair at (row, col) of the act buffer: atom col / 64, 16-byte
+// chunk (col % 64) / 8 swizzled with row % 8.
+__device__ __forceinline__ __nv_bfloat162* act_ptr(unsigned char* act, int row, int col) {
+  return reinterpret_cast<__nv_bfloat162*>(act + (col >> 6) * (BM * 128) + row * 128 +
+                                           ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
+}
 
-    // ---- phase 1: LayerNorm and ELU backward, one warp per row
-    {
-      float pdb[H / 32], pdg[H / 32], pdbe[H / 32];
-#pragma unroll
-      for (int j = 0; j < H / 32; ++j) pdb[j] = pdg[j] = pdbe[j] = 0.f;
-      for (int rr = 0; rr < BM / 8; ++rr) {
-        const int r = warp * (BM / 8) + rr, gr = row0 + r;
-        if (gr >= B) {
-#pragma unroll
-          for (int j = 0; j < H / 32; ++j) Xs[r * LDX + lane + 32 * j] = __float2bfloat16(0.f);
-          continue;
-        }
-        bf16* ar = adl + (size_t)gr * H;
-        float av[H / 32], dv[H / 32];
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < H / 32; ++j) {
-          av[j] = __bfloat162float(ar[lane + 32 * j]);
-          dv[j] = dys[r * LDY + lane + 32 * j];
-          s += av[j];
-        }
-        const float mu = warp_sum(s) / H;
-        float q = 0.f;
-#pragma unroll
-        for (int j = 0; j < H / 32; ++j) {
-          const float d = av[j] - mu;
-          q += d * d;
-        }
-        const float inv = rsqrtf(warp_sum(q) / H + EPS);
-        float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < H / 32; ++j) {
-          const float yhat = (av[j] - mu) * inv;
-          const float dyh = dv[j] * gn[lane + 32 * j];
-          s1 += dyh;
-          s2 += dyh * yhat;
-        }
-        const float m1 = warp_sum(s1) / H, m2 = warp_sum(s2) / H;
-#pragma unroll
-        for (int j = 0; j < H / 32; ++j) {
-          const int c = lane + 32 * j;
-          const float yhat = (av[j] - mu) * inv;
-          const float dyh = dv[j] * gn[c];
-          const float da = (dyh - m1 - yhat * m2) * inv;
-          const float dh = da * (av[j] > 0.f ? 1.f : av[j] + 1.f);
-          const bf16 dh16 = __float2bfloat16(dh);
-          Xs[r * LDX + c] = dh16;
-          ar[c] = dh16;
-          pdb[j] += dh;
-          pdg[j] += dv[j] * yhat;
-          pdbe[j] += dv[j];
-        }
-      }
-      __syncthreads();  // dy is consumed: its region takes the warps' partials
-#pragma unroll
-      for (int j = 0; j < H / 32; ++j) {
-        const int c = lane + 32 * j;
-        red[(warp * 3 + 0) * H + c] = pdb[j];
-        red[(warp * 3 + 1) * H + c] = pdg[j];
-        red[(warp * 3 + 2) * H + c] = pdbe[j];
-      }
-    }
-    __syncthreads();
-    for (int c = tid; c < 3 * H; c += THREADS) {  // warps summed in a fixed order
-      const int q = c / H, col = c % H;
-      float s = 0.f;
-      for (int wi = 0; wi < 8; ++wi) s += red[(wi * 3 + q) * H + col];
-      pn[3 * H * l + c] = s;
-    }
-    __syncthreads();
+// The tensor maps of the W tiles, W_l as stored (forward) and as W_l^T
+// (backward), one pair per layer; and of the a_l scratch [L * N][B][H],
+// read back in 64 x 64 boxes.
+struct TowerMaps {
+  CUtensorMap fwd[MAXL], bwd[MAXL], act;
+};
 
-    // ---- phase 2: the next dy (or layer 0's dx_raw) = dh16 @ w_l^T, f32,
-    // DC columns at a time, into the dy region
-    const int Dl = l == 0 ? Din : H;
-    const bf16* wn = p.w[l] + (size_t)n * Dl * H;
-    for (int d0 = 0; d0 < Dl; d0 += DC) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-      for (int k0 = 0; k0 < H; k0 += KT) {
-        for (int idx = tid; idx < DC * KT / 8; idx += THREADS) {  // Ws[j][k] = w[d0+j][k0+k]
-          const int j = idx / (KT / 8), k = (idx % (KT / 8)) * 8;
-          *reinterpret_cast<uint4*>(Ws + j * LDW + k) =
-              *reinterpret_cast<const uint4*>(wn + (size_t)(d0 + j) * H + k0 + k);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < KT; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(af[i], Xs + (wr * 32 + i * 16) * LDX + k0 + kk, LDX);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-            wmma::load_matrix_sync(bfr, Ws + (wc * 32 + j * 16) * LDW + kk, LDW);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(dys + (wr * 32 + i * 16) * LDY + d0 + wc * 32 + j * 16,
-                                  acc[i][j], LDY, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
+// A warp's column sum: v is the sum over the thread's two rows of column cw
+// (of its warpgroup's columns); col_warp_sum adds the warp's 16 rows, then
+// lanes 0-3 store it in cred [warp][q][256].
+__device__ __forceinline__ void cred_store(float* cred, int warp, int q, int cw, float v) {
+  v = col_warp_sum(v);
+  if ((threadIdx.x & 31) < 4) cred[(warp * 3 + q) * 256 + cw] = v;
+}
 
-  // layer 0: dg0 = sum dx_raw * x and db0 = sum dx_raw over the block's rows
-  // in row order; dx = bf16(dx_raw * g0) when asked for
-  const bf16* xn = x + n * sx;
-  const float* g0n = g0 + (size_t)n * Din;
-  for (int c = tid; c < Din; c += THREADS) {
-    float sg = 0.f, sb = 0.f;
-    for (int r = 0; r < BM && row0 + r < B; ++r) {
-      const float v = dys[r * LDY + c];
-      sg += v * __bfloat162float(xn[(size_t)(row0 + r) * Din + c]);
-      sb += v;
-    }
-    pn[3 * L * H + c] = sg;
-    pn[3 * L * H + Din + c] = sb;
-  }
-  if (dx != nullptr) {
-    for (int idx = tid; idx < BM * Din; idx += THREADS) {
-      const int r = idx / Din, c = idx % Din, gr = row0 + r;
-      if (gr < B) dx[((size_t)n * B + gr) * Din + c] = __float2bfloat16(dys[r * LDY + c] * g0n[c]);
-    }
+// The warpgroup's 4 warps summed in a fixed order into part[out + q * stride
+// + cb + c] for q < nq, c < width.
+__device__ __forceinline__ void cred_flush(const float* cred, int wg, int t, int nq, int width,
+                                           float* out, int stride, int cb) {
+  for (int c = t; c < nq * width; c += 128) {
+    const int q = c / width, cc = c % width;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) s += cred[((wg * 4 + w) * 3 + q) * 256 + cc];
+    out[q * stride + cb + cc] = s;
   }
 }
 
-// Sums the row pass's per-block partials [N][nblk][3LH + 2Din] in block
-// order into vh [3L][N][H] (db, dgamma, dbeta of each layer) and vd
-// [2][N][Din] (dg0, db0).
-__global__ void tower_reduce_vec_kernel(int N, int nblk, int H, int Din, int L,
-                                        const float* __restrict__ part, float* __restrict__ vh,
-                                        float* __restrict__ vd) {
-  const int P = 3 * L * H + 2 * Din;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= N * P) return;
-  const int n = idx / P, c = idx % P;
-  const float* pp = part + (size_t)n * nblk * P + c;
-  float s = 0.f;
-#pragma unroll 16
-  for (int b = 0; b < nblk; ++b) s += pp[(size_t)b * P];
-  if (c < 3 * L * H) {
-    vh[((size_t)(c / H) * N + n) * H + c % H] = s;
+template <int HK>
+__global__ void __launch_bounds__(RP_THREADS, 1)
+tower_bwd_wgmma_kernel(const __grid_constant__ TowerMaps maps, int B, int Din, int L,
+                       long long sx, const bf16* __restrict__ dy,
+                       const bf16* __restrict__ x, const float* __restrict__ g0,
+                       const float* __restrict__ b0, Layers p, bf16* __restrict__ dx,
+                       bf16* __restrict__ ad, bf16* __restrict__ xs, float* __restrict__ part) {
+  constexpr int H = 128 * HK;
+  constexpr int NBH = H / 128;  // 64-column blocks per warpgroup of an H-wide result
+  constexpr int NT = H / 2;     // columns per warpgroup of an H-wide result
+  constexpr float INV_H = 1.f / H;  // a mean is the sum times 1/H, as torch's mean computes it
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const TowerSmem S = tower_layout(Din, H);
+  unsigned char* act = smem;
+  float* stats = reinterpret_cast<float*>(smem + S.stats);
+  float* cred = reinterpret_cast<float*>(smem + S.cred);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S.bars);
+  uint64_t* empty = full + T5_STAGES;
+  uint64_t* abar = empty + T5_STAGES;
+  float* vec = reinterpret_cast<float*>(smem + S.vec);
+  const int n = blockIdx.y, N = gridDim.y, blk = blockIdx.x, row0 = blk * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    ring_init(full, empty, T5_STAGES);
+    mbar_init(abar, 1);
+  }
+  mbar_init_fence();
+  __syncthreads();
+  Ring ring{full, empty, smem + S.ring, T5_STAGE_BYTES, T5_STAGES, 0, 0};
+
+  if (warp >= 8) {  // ---- producer: W_0 .. W_{L-1} as stored, then W_{L-1}^T .. W_0^T
+    regs_dealloc<PRODUCER_REGS>();
+    if (warp == 8 && lane == 0) {
+      for (int l = 0; l < L; ++l) {
+        const int K = l == 0 ? Din : H;
+        for (int k0 = 0; k0 < K; k0 += T5_KD) {
+          ring.producer_acquire();
+          uint64_t* bar = &full[ring.stage];
+          mbar_expect_tx(bar, T5_KD * H * 2);
+          for (int b = 0; b < H / 64; ++b)
+            tma_load(ring.buf() + b * (T5_KD * 128), &maps.fwd[l], bar, 64 * b, k0, n);
+          ring.advance();
+        }
+      }
+      for (int l = L - 1; l >= 0; --l) {
+        const int Nl = l == 0 ? Din : H;
+        for (int k0 = 0; k0 < H; k0 += T5_KD) {
+          ring.producer_acquire();
+          uint64_t* bar = &full[ring.stage];
+          mbar_expect_tx(bar, Nl * T5_KD * 2);
+          for (int b = 0; b < Nl / 128; ++b)
+            tma_load(ring.buf() + b * (128 * T5_KD * 2), &maps.bwd[l], bar, k0, 128 * b, n);
+          ring.advance();
+        }
+      }
+    }
   } else {
-    const int d = c - 3 * L * H;
-    vd[((size_t)(d / Din) * N + n) * Din + d % Din] = s;
+    regs_alloc<CONSUMER_REGS>();
+    // ---- consumers: warpgroup wg computes the columns [wg * width / 2, ...) of
+    // every product for all 64 rows; this thread holds rows ra and ra + 8
+    const int wg = warp >> 2, t = tid & 127;
+    const bool elected = t == 0;
+    const int ra = (warp & 3) * 16 + (lane >> 2);
+    const bool va = row0 + ra < B, vb = row0 + ra + 8 < B;
+    const size_t NBHt = (size_t)N * B * H;
+    const size_t rowa = (size_t)n * B + row0 + ra, rowb = rowa + 8;
+    const int P = 3 * L * H + 2 * Din;
+    float* pn = part + ((size_t)n * gridDim.x + blk) * P;
+    const uint32_t act_u = smem_u32(act);
+    int sb = 0;  // the stats buffer of the next row reduction
+    auto rows_sum = [&](float& v0, float& v1) {
+      row_allreduce2(v0, v1, stats + sb * 128, wg, ra);
+      sb ^= 1;
+    };
+
+    // vectors are read from shared memory, staged once per layer: global
+    // loads at scattered columns would each wait out their latency
+    auto stage = [&](int slot, const float* src, int len) {
+      for (int c = tid; c < len; c += CONSUMERS) vec[slot * 512 + c] = src[c];
+    };
+    stage(0, b0 + (size_t)n * Din, Din);
+    stage(3, g0 + (size_t)n * Din, Din);
+    consumers_sync();
+    {  // layer 0's input: xt = bf16(x*g0 + b0)
+      const bf16* xn = x + n * sx;
+      for (int c = tid; c < 8 * Din; c += CONSUMERS) {  // chunk j of row r
+        const int r = c / (Din / 8), j = c % (Din / 8), gr = row0 + r;
+        *reinterpret_cast<uint4*>(act + (j >> 3) * (BM * 128) + r * 128 + (((j & 7) ^ (r & 7)) << 4)) =
+            load_xt8(xn + (size_t)(gr < B ? gr : 0) * Din, vec + 3 * 512, vec, j * 8, gr < B);
+      }
+    }
+    fence_async_smem();
+    consumers_sync();
+
+    float acc[T5_NB][32];
+    const int cb = wg * NT;  // this warpgroup's first column of an H-wide result
+    for (int l = 0; l < L; ++l) {
+      const int K = l == 0 ? Din : H;
+      stage(0, p.b[l] + (size_t)n * H, H);
+      stage(1, p.g[l] + (size_t)n * H, H);
+      stage(2, p.be[l] + (size_t)n * H, H);
+      tower_product<true>(acc, NBH, act_u, K, ring, H, wg, elected);
+      consumers_sync();
+      const float* bn = vec;
+      bf16* adl = ad + l * NBHt;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NBH; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int col = T5_COL(cb, j, i);
+          const float2 bb = *reinterpret_cast<const float2*>(bn + col);
+          float h0 = acc[j][i] + bb.x, h1 = acc[j][i + 1] + bb.y;
+          h0 = h0 > 0.f ? h0 : expf(h0) - 1.f;
+          h1 = h1 > 0.f ? h1 : expf(h1) - 1.f;
+          acc[j][i] = h0;
+          acc[j][i + 1] = h1;
+          const bool lower = (i & 2) != 0;
+          if (lower) s1 += h0 + h1;
+          else s0 += h0 + h1;
+          if (lower ? vb : va)
+            *reinterpret_cast<__nv_bfloat162*>(adl + (lower ? rowb : rowa) * H + col) =
+                __floats2bfloat162_rn(h0, h1);
+        }
+      if (l == L - 1) break;  // the backward needs no LayerNorm output of the last layer
+      rows_sum(s0, s1);
+      const float mu0 = s0 * INV_H, mu1 = s1 * INV_H;
+      float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NBH; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float d = acc[j][i] - ((i & 2) ? mu1 : mu0);
+          if (i & 2) q1 += d * d;
+          else q0 += d * d;
+        }
+      rows_sum(q0, q1);  // both warpgroups are past their products: act may take x_{l+1}
+      const float inv0 = rsqrtf(q0 * INV_H + EPS), inv1 = rsqrtf(q1 * INV_H + EPS);
+      const float* gn = vec + 512;
+      const float* ben = vec + 1024;
+      bf16* xsl = xs + l * NBHt;
+#pragma unroll
+      for (int j = 0; j < NBH; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int col = T5_COL(cb, j, i);
+          const bool lower = (i & 2) != 0;
+          const float mu = lower ? mu1 : mu0, inv = lower ? inv1 : inv0;
+          const float2 gg = *reinterpret_cast<const float2*>(gn + col);
+          const float2 bb = *reinterpret_cast<const float2*>(ben + col);
+          const float y0 = (acc[j][i] - mu) * inv * gg.x + bb.x;
+          const float y1 = (acc[j][i + 1] - mu) * inv * gg.y + bb.y;
+          const __nv_bfloat162 yv = __floats2bfloat162_rn(y0, y1);
+          *act_ptr(act, ra + (lower ? 8 : 0), col) = yv;
+          if (lower ? vb : va)
+            *reinterpret_cast<__nv_bfloat162*>(xsl + (lower ? rowb : rowa) * H + col) = yv;
+        }
+      fence_async_smem();
+      consumers_sync();
+    }
+
+    // the last layer's dy (bf16 in), f32 in the accumulator layout; rows past
+    // B load row B - 1 (all loads in flight together) and count as zeros
+    const size_t rowa_c = (size_t)n * B + min(row0 + ra, B - 1);
+    const size_t rowb_c = (size_t)n * B + min(row0 + ra + 8, B - 1);
+#pragma unroll
+    for (int j = 0; j < NBH; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int col = T5_COL(cb, j, i);
+        const bool lower = (i & 2) != 0;
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dy + (lower ? rowb_c : rowa_c) * H + col));
+        const bool ok = lower ? vb : va;
+        acc[j][i] = ok ? v.x : 0.f;
+        acc[j][i + 1] = ok ? v.y : 0.f;
+      }
+    // the forward's a_l stores before the TMA reads of them below
+    asm volatile("fence.proxy.async;" ::: "memory");
+    int ap = 0;  // phase of abar
+
+    for (int l = L - 1; l >= 0; --l) {
+      bf16* adl = ad + l * NBHt;  // a_l, overwritten by dh16_l
+      stage(1, p.g[l] + (size_t)n * H, H);
+      const float* gn = vec + 512;
+      // a_l's 64 rows into act by TMA once both warpgroups are past their
+      // last product (rows past B read as zeros); dh16_l then replaces it
+      consumers_sync();
+      if (tid == 0) {
+        mbar_expect_tx(abar, BM * H * 2);
+        for (int b = 0; b < H / 64; ++b)
+          tma_load(act + b * (BM * 128), &maps.act, abar, 64 * b, row0, l * N + n);
+      }
+      mbar_wait(abar, ap);
+      ap ^= 1;
+      auto load_a = [&](int j, int i) {
+        return __bfloat1622float2(*act_ptr(act, ra + ((i & 2) ? 8 : 0), T5_COL(cb, j, i)));
+      };
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NBH; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const float2 av = load_a(j, i);
+          if (i & 2) s1 += av.x + av.y;
+          else s0 += av.x + av.y;
+        }
+      rows_sum(s0, s1);
+      const float mu0 = s0 * INV_H, mu1 = s1 * INV_H;
+      float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NBH; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const float2 av = load_a(j, i);
+          const float mu = (i & 2) ? mu1 : mu0;
+          const float d0 = av.x - mu, d1 = av.y - mu;
+          if (i & 2) q1 += d0 * d0 + d1 * d1;
+          else q0 += d0 * d0 + d1 * d1;
+        }
+      rows_sum(q0, q1);
+      const float inv0 = rsqrtf(q0 * INV_H + EPS), inv1 = rsqrtf(q1 * INV_H + EPS);
+      float m10 = 0.f, m11 = 0.f, m20 = 0.f, m21 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NBH; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int col = T5_COL(cb, j, i);
+          const float2 av = load_a(j, i);
+          const float2 gg = *reinterpret_cast<const float2*>(gn + col);
+          const bool lower = (i & 2) != 0;
+          const float mu = lower ? mu1 : mu0, inv = lower ? inv1 : inv0;
+          const float y0 = (av.x - mu) * inv, y1 = (av.y - mu) * inv;
+          const float e0 = acc[j][i] * gg.x, e1 = acc[j][i + 1] * gg.y;
+          if (lower) {
+            m11 += e0 + e1;
+            m21 += e0 * y0 + e1 * y1;
+          } else {
+            m10 += e0 + e1;
+            m20 += e0 * y0 + e1 * y1;
+          }
+        }
+      rows_sum(m10, m11);
+      rows_sum(m20, m21);
+      m10 *= INV_H, m11 *= INV_H, m20 *= INV_H, m21 *= INV_H;
+      // column sums of db (q 0), dgamma = dy * yhat (1) and dbeta = dy (2); dh16
+#pragma unroll
+      for (int j = 0; j < NBH; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; i += 4) {  // columns col, col + 1 of rows ra (i, i + 1), ra + 8 (i + 2, i + 3)
+          const int col = T5_COL(cb, j, i), cw = col - cb;
+          const float2 aa = load_a(j, i), ab = load_a(j, i + 2);
+          const float2 gg = *reinterpret_cast<const float2*>(gn + col);
+          const float ya0 = (aa.x - mu0) * inv0, ya1 = (aa.y - mu0) * inv0;
+          const float yb0 = (ab.x - mu1) * inv1, yb1 = (ab.y - mu1) * inv1;
+          const float d00 = acc[j][i], d01 = acc[j][i + 1], d10 = acc[j][i + 2], d11 = acc[j][i + 3];
+          const float h00 = ((d00 * gg.x - m10 - ya0 * m20) * inv0) * (aa.x > 0.f ? 1.f : aa.x + 1.f);
+          const float h01 = ((d01 * gg.y - m10 - ya1 * m20) * inv0) * (aa.y > 0.f ? 1.f : aa.y + 1.f);
+          const float h10 = ((d10 * gg.x - m11 - yb0 * m21) * inv1) * (ab.x > 0.f ? 1.f : ab.x + 1.f);
+          const float h11 = ((d11 * gg.y - m11 - yb1 * m21) * inv1) * (ab.y > 0.f ? 1.f : ab.y + 1.f);
+          cred_store(cred, warp, 0, cw, h00 + h10);
+          cred_store(cred, warp, 0, cw + 1, h01 + h11);
+          cred_store(cred, warp, 1, cw, d00 * ya0 + d10 * yb0);
+          cred_store(cred, warp, 1, cw + 1, d01 * ya1 + d11 * yb1);
+          cred_store(cred, warp, 2, cw, d00 + d10);
+          cred_store(cred, warp, 2, cw + 1, d01 + d11);
+          const __nv_bfloat162 ha = __floats2bfloat162_rn(h00, h01), hb = __floats2bfloat162_rn(h10, h11);
+          *act_ptr(act, ra, col) = ha;
+          *act_ptr(act, ra + 8, col) = hb;
+          if (va) *reinterpret_cast<__nv_bfloat162*>(adl + rowa * H + col) = ha;
+          if (vb) *reinterpret_cast<__nv_bfloat162*>(adl + rowb * H + col) = hb;
+        }
+      fence_async_smem();
+      consumers_sync();
+      cred_flush(cred, wg, t, 3, NT, pn + 3 * H * l, H, cb);  // db, dgamma, dbeta of layer l
+      consumers_sync();
+
+      // the next dy (or layer 0's dx_raw) = dh16 @ w_l^T, f32
+      const int Nl = l == 0 ? Din : H;
+      tower_product<false>(acc, Nl / 128, act_u, H, ring, Nl, wg, elected);
+    }
+
+    // layer 0: dg0 = sum dx_raw * x, db0 = sum dx_raw; dx = bf16(dx_raw * g0)
+    const int nbd = Din / 128, cbd = wg * (Din / 2);
+    const bf16* xn = x + n * sx;
+    const float* g0n = vec + 3 * 512;
+#pragma unroll
+    for (int j = 0; j < T5_NB; ++j) {
+      if (j >= nbd) break;
+#pragma unroll
+      for (int i4 = 0; i4 < 8; ++i4) {
+        const int i = i4 * 4, col = T5_COL(cbd, j, i);
+        float2 xa = make_float2(0.f, 0.f), xb = make_float2(0.f, 0.f);
+        const size_t ga = min(row0 + ra, B - 1), gb = min(row0 + ra + 8, B - 1);
+        xa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xn + ga * Din + col));
+        xb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xn + gb * Din + col));
+        if (!va) xa = make_float2(0.f, 0.f);
+        if (!vb) xb = make_float2(0.f, 0.f);
+        const float v00 = acc[j][i], v01 = acc[j][i + 1], v10 = acc[j][i + 2], v11 = acc[j][i + 3];
+        cred_store(cred, warp, 0, col - cbd, v00 * xa.x + v10 * xb.x);  // dg0
+        cred_store(cred, warp, 0, col - cbd + 1, v01 * xa.y + v11 * xb.y);
+        cred_store(cred, warp, 1, col - cbd, v00 + v10);
+        cred_store(cred, warp, 1, col - cbd + 1, v01 + v11);
+        if (dx != nullptr) {
+          const float2 gg = *reinterpret_cast<const float2*>(g0n + col);
+          if (va)
+            *reinterpret_cast<__nv_bfloat162*>(dx + rowa * Din + col) =
+                __floats2bfloat162_rn(v00 * gg.x, v01 * gg.y);
+          if (vb)
+            *reinterpret_cast<__nv_bfloat162*>(dx + rowb * Din + col) =
+                __floats2bfloat162_rn(v10 * gg.x, v11 * gg.y);
+        }
+      }
+    }
+    consumers_sync();
+    cred_flush(cred, wg, t, 2, Din / 2, pn + 3 * L * H, Din, cbd);  // dg0, db0
   }
 }
 
 struct Scratch {
-  size_t ad, xs, part, dwp, total;
+  size_t ad, xs, part, dwp, tmp, total;
 };
 
 Scratch scratch_layout(int N, int B, int Din, int H, int L) {
   const size_t nbh2 = (size_t)N * B * H * 2;
-  const size_t nblk = (B + BM - 1) / BM;
+  const int nblk = (B + BM - 1) / BM, P = 3 * L * H + 2 * Din;
   size_t dwp = dw_partial_bytes(N, B, Din, H);
   const size_t dwp_h = dw_partial_bytes(N, B, H, H);
   if (L > 1 && dwp_h > dwp) dwp = dwp_h;
@@ -437,8 +675,9 @@ Scratch scratch_layout(int N, int B, int Din, int H, int L) {
   s.ad = 0;
   s.xs = align256(L * nbh2);
   s.part = s.xs + align256((L - 1) * nbh2);
-  s.dwp = s.part + align256(nblk * N * (3 * L * H + 2 * Din) * 4);
-  s.total = s.dwp + dwp;
+  s.dwp = s.part + align256((size_t)nblk * N * P * 4);
+  s.tmp = s.dwp + dwp;
+  s.total = s.tmp + colsum_tmp_bytes(N, nblk, P);
   return s;
 }
 
@@ -457,7 +696,7 @@ Layers make_layers(int L, const void* const* w, const void* const* b, const void
 template <int HK>
 int launch_tower_fwd(int N, int B, int Din, int L, long long sx, const void* x, const void* g0,
                      const void* b0, const Layers& p, void* y, cudaStream_t st) {
-  const size_t smem = Regions(Din, 128 * HK, false).total();
+  const size_t smem = Regions(Din, 128 * HK).total();
   const int err = allow_smem(tower_fwd_kernel<HK>, smem);
   if (err != 0) return err;
   dim3 grid((B + BM - 1) / BM, N);
@@ -471,17 +710,31 @@ template <int HK>
 int launch_tower_rows(int N, int B, int Din, int L, long long sx, const void* dy, const void* x,
                       const void* g0, const void* b0, const Layers& p, void* dx, bf16* ad,
                       bf16* xs, float* part, cudaStream_t st) {
-  const size_t smem = Regions(Din, 128 * HK, true).total();
-  const int err = allow_smem(tower_bwd_rows_kernel<HK>, smem);
+  constexpr int H = 128 * HK;
+  const size_t smem = tower_layout(Din, H).total;
+  TowerMaps maps;
+  int err = 0;
+  for (int l = 0; l < L && err == 0; ++l) {
+    const int K = l == 0 ? Din : H;
+    err = make_map(&maps.fwd[l], p.w[l], H, K, N, (uint64_t)H * 2, (uint64_t)K * H * 2, 64, T5_KD,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == 0)
+      err = make_map(&maps.bwd[l], p.w[l], H, K, N, (uint64_t)H * 2, (uint64_t)K * H * 2, T5_KD,
+                     128, CU_TENSOR_MAP_SWIZZLE_64B);
+  }
+  if (err == 0)
+    err = make_map(&maps.act, ad, H, B, (uint64_t)L * N, (uint64_t)H * 2, (uint64_t)B * H * 2, 64,
+                   BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0) err = allow_smem(tower_bwd_wgmma_kernel<HK>, smem);
   if (err != 0) return err;
   dim3 grid((B + BM - 1) / BM, N);
-  tower_bwd_rows_kernel<HK><<<grid, THREADS, smem, st>>>(
-      B, Din, L, sx, (const bf16*)dy, (const bf16*)x, (const float*)g0, (const float*)b0, p,
+  tower_bwd_wgmma_kernel<HK><<<grid, RP_THREADS, smem, st>>>(
+      maps, B, Din, L, sx, (const bf16*)dy, (const bf16*)x, (const float*)g0, (const float*)b0, p,
       (bf16*)dx, ad, xs, part);
   return (int)cudaGetLastError();
 }
 
-// Din up to 512 keeps B5's block within the card's shared memory at every H.
+// Din up to 512 keeps the blocks within the card's shared memory at every H.
 bool tower_dims_ok(int N, int B, int Din, int H, int L) {
   return N > 0 && B > 0 && L > 0 && L <= MAXL && Din > 0 && Din % 128 == 0 && Din <= 512 &&
          H % 128 == 0 && H >= 128 && H <= 512;
@@ -489,10 +742,9 @@ bool tower_dims_ok(int N, int B, int Din, int H, int L) {
 
 }  // namespace
 
-// All entry points launch on `stream`, allocate nothing and return
-// cudaGetLastError() or the error of a refused launch
-// (cudaErrorInvalidValue for shapes they do not take).  Per-layer operands
-// come as host arrays of L device pointers.
+// All entry points launch on `stream`, allocate nothing and return the
+// first launch error (cudaErrorInvalidValue for shapes they do not take).
+// Per-layer operands come as host arrays of L device pointers.
 
 extern "C" int mlp_tower_fwd(int N, int B, int Din, int H, int L, long long sx, const void* x,
                              const void* g0, const void* b0, const void* const* w,
@@ -510,8 +762,8 @@ extern "C" int mlp_tower_fwd(int N, int B, int Din, int H, int L, long long sx, 
 }
 
 // Bytes of device scratch mlp_tower_bwd needs: a_l/dh16_l [L][N,B,H] and
-// x_l [L-1][N,B,H] bf16, the row pass's partial sums and the dW pass's
-// partial tiles.
+// x_l [L-1][N,B,H] bf16, the row pass's partial sums, the dW pass's partial
+// tiles and the first level of the sums' reduction.
 extern "C" long long mlp_tower_bwd_scratch(int N, int B, int Din, int H, int L) {
   if (!tower_dims_ok(N, B, Din, H, L)) return 0;
   return (long long)scratch_layout(N, B, Din, H, L).total;
@@ -554,8 +806,6 @@ extern "C" int mlp_tower_bwd(int N, int B, int Din, int H, int L, long long sx, 
     if (err != 0) return err;
   }
   const int nblk = (B + BM - 1) / BM;
-  const int nvec = N * (3 * L * H + 2 * Din);
-  tower_reduce_vec_kernel<<<(nvec + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      N, nblk, H, Din, L, part, (float*)vec_h, (float*)vec_d);
-  return (int)cudaGetLastError();
+  return launch_colsum(N, nblk, 3 * L * H + 2 * Din, 3 * L * H, H, Din, part,
+                       (float*)(base + lay.tmp), (float*)vec_h, (float*)vec_d, st);
 }

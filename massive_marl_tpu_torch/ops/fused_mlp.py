@@ -177,7 +177,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
 fused_mlp_lib = CudaLib("fused_mlp.cu", {
     "dense_elu_ln_fwd": ([_I] * 4 + [_LL] + [_P] * 10, _I),
     "dense_elu_ln_bwd_scratch": ([_I] * 4, _LL),
-    "dense_elu_ln_bwd": ([_I] * 4 + [_LL] + [_P] * 16, _I),
+    "dense_elu_ln_bwd": ([_I] * 4 + [_LL] + [_P] * 13, _I),
 })
 fused_tower_lib = CudaLib("fused_tower.cu", {
     "mlp_tower_fwd": ([_I] * 5 + [_LL] + [_P] * 3 + [_PP] * 4 + [_P] * 2, _I),
@@ -274,8 +274,7 @@ class DenseEluLnBwdKernel:
         err = lib.dense_elu_ln_bwd(
             N, B, Din, H, sx, dy.data_ptr(), a.data_ptr(), x.data_ptr(), w16.data_ptr(),
             g.data_ptr(), g0.data_ptr(), b0.data_ptr(), 0 if dx is None else dx.data_ptr(),
-            dw.data_ptr(), vec_h[0].data_ptr(), vec_h[1].data_ptr(), vec_h[2].data_ptr(),
-            vec_d[0].data_ptr(), vec_d[1].data_ptr(), scratch.data_ptr(), stream)
+            dw.data_ptr(), vec_h.data_ptr(), vec_d.data_ptr(), scratch.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"dense_elu_ln_bwd launch failed with CUDA error {err}")
         self.launches += 1

@@ -16,7 +16,7 @@ Din 128, H 128, L 3), inputs made with numpy from a seed:
 
 Tests marked `cuda` hold B4/B5 against their plain versions on the card
 (ragged B, every H the kernels take, a shared input with agent stride 0,
-dx both ways, the same bits from run to run).  JAX is imported only inside
+one and three layers, dx both ways, the same bits from run to run).  JAX is imported only inside
 the fixture that needs it, so on the GPU host they run without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_fused_tower.py
 Tolerances on the card, TOWER_TOL of the output's scale, looser than
@@ -236,13 +236,17 @@ def _close(got, ref, kind, name):
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=TOWER_TOL[kind] * scale, err_msg=name)
 
 
+# ragged B (1, 63, 65, 4,096 + 37), every H, Din 128 and 512, N = 10 with a
+# shared input, L = 1 and 3; the dW pass's row split is 1 at B <= 256 and
+# more than 1 at (1, 4133, 512, 384) and (1, 4097, 512, 384)
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,b,din,h,shared", [(2, 100, 128, 128, False), (3, 200, 256, 256, True),
-                                              (1, 4097, 512, 384, False),
-                                              (2, 1000, 128, 512, False),
-                                              (10, 640, 512, 512, True)])
-def test_tower_kernels_match_plain_on_card(cuda, n, b, din, h, shared):
-    p = _port(_np_inputs(4, n, b, din, h, L, shared), cuda, shared)
+@pytest.mark.parametrize("n,b,din,h,shared,layers", [
+    (2, 100, 128, 128, False, L), (3, 200, 256, 256, True, L), (1, 4097, 512, 384, False, L),
+    (2, 1000, 128, 512, False, L), (10, 640, 512, 512, True, L), (1, 1, 128, 128, False, 1),
+    (1, 63, 512, 256, False, 3), (10, 65, 512, 512, True, 1), (1, 4133, 512, 384, False, 3),
+    (2, 4133, 128, 128, False, 1)])
+def test_tower_kernels_match_plain_on_card(cuda, n, b, din, h, shared, layers):
+    p = _port(_np_inputs(4, n, b, din, h, layers, shared), cuda, shared)
     ws16 = [w.to(BF16) for w in p["w"]]
     args = (p["x"], p["g0"], p["b0"], ws16, p["b"], p["g"], p["be"])
     dy = p["c"].to(BF16)

@@ -1,0 +1,74 @@
+"""The ctypes signature tables of the fused MLP kernels against their C ABI.
+
+ctypes does not read a library's declarations: an argument list in
+`fused_mlp_lib.signatures` / `fused_tower_lib.signatures` that differs from
+the `extern "C"` declaration in csrc/ passes arguments of the wrong width
+(a pointer cut to 32 bits, an int read as a pointer) without any error on
+the card.  These tests parse the declarations in the sources and hold each
+table entry to them: the argument count, each argument's kind (int, long
+long, pointer, host array of pointers) and the return type.  They need
+neither a card nor nvcc.
+"""
+import ctypes
+import os
+import re
+
+import pytest
+
+from massive_marl_tpu_torch.ops import fused_mlp as fm
+
+CSRC = os.path.join(os.path.dirname(fm.__file__), "csrc")
+LIBS = (fm.fused_mlp_lib, fm.fused_tower_lib)
+DECL = re.compile(r'extern\s+"C"\s+([\w ]+?)\s+(\w+)\s*\(([^)]*)\)', re.S)
+KINDS = {ctypes.c_int: "int", ctypes.c_longlong: "long long", ctypes.c_void_p: "pointer",
+         ctypes.POINTER(ctypes.c_void_p): "pointer array"}
+
+
+def _kind(c_type: str) -> str:
+    """The argument kind of a C parameter or return type."""
+    t = " ".join(c_type.replace("*", " * ").split())
+    t = re.sub(r"\bconst\b\s*", "", t).strip()
+    stars = t.count("*")
+    base = t.replace("*", "").strip()
+    if stars == 0:
+        return {"int": "int", "long long": "long long"}[base]
+    return "pointer" if stars == 1 else "pointer array"
+
+
+def _declarations(source: str) -> dict:
+    """{function: (argument kinds, return kind)} of a source's extern "C"
+    functions."""
+    with open(os.path.join(CSRC, source)) as fh:
+        text = re.sub(r"//[^\n]*", "", fh.read())
+    out = {}
+    for ret, name, params in DECL.findall(text):
+        params = [p.strip() for p in params.split(",") if p.strip()]
+        # drop the parameter's name: the last identifier
+        kinds = [_kind(re.sub(r"\b\w+\s*$", "", p)) for p in params]
+        out[name] = (kinds, _kind(ret))
+    return out
+
+
+CASES = [(lib, name) for lib in LIBS for name in sorted(_declarations(lib.source))]
+
+
+def test_every_declaration_has_a_table_entry():
+    for lib in LIBS:
+        assert sorted(_declarations(lib.source)) == sorted(lib.signatures), lib.source
+
+
+def test_parser_reads_the_kinds():
+    assert _kind("const void* const*") == "pointer array"
+    assert _kind("void* const*") == "pointer array"
+    assert _kind("const void*") == "pointer" and _kind("void *") == "pointer"
+    assert _kind("long long") == "long long" and _kind("int") == "int"
+
+
+@pytest.mark.parametrize("lib,name", CASES, ids=[f"{lib.source}:{name}" for lib, name in CASES])
+def test_signature_matches_declaration(lib, name):
+    kinds, ret = _declarations(lib.source)[name]
+    argtypes, restype = lib.signatures[name]
+    assert len(argtypes) == len(kinds), f"{name}: {len(argtypes)} ctypes arguments, C has {len(kinds)}"
+    for i, (t, k) in enumerate(zip(argtypes, kinds)):
+        assert KINDS[t] == k, f"{name} argument {i}: ctypes {KINDS[t]}, C {k}"
+    assert KINDS[restype] == ret, f"{name} returns {ret}, ctypes says {KINDS[restype]}"
