@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build the kernels from massive_marl_tpu_torch/ops/csrc/ (substep.cu:
-     B1 and B6; fused_mlp.cu: B2/B3; fused_tower.cu: B4/B5), one nvcc per
+     B1, its DR instantiation and B6; fused_mlp.cu: B2/B3; fused_tower.cu: B4/B5), one nvcc per
      source, started together; print the build seconds and ptxas' register
      and spill report;
   3. hold B1 against its plain PyTorch version at E=4096 envs x 10 ants
@@ -21,6 +21,15 @@ Phases; any failure raises and the script exits non-zero:
   3c. the debug tool (cli/debug_fused.main) for the three scenarios on the
      card, which prints its table: exactly 2 B6 and 2 B1 launches per
      scenario, counted from 0 before the phase;
+  3d. B1's DR instantiation (the [41, B] domain-randomization operand)
+     against its plain version at E=4096 over phase 3's families, both
+     contact branches, with DrSamples drawn from cfg/TenAnt.yaml's spec
+     (read by the port's YAML loader) as the file is and with `maps_to:
+     armature`; its time beside B1's in the same call, its bound and the
+     plain version's time;
+  3e. one TenAnt control step of E=4096 envs with one DrSample through
+     fused_scene_step (B1-DR) and the array engine's scene_step, from fresh
+     resets, held at the control-step tolerances;
   4. hold B2/B3 against their plain versions at the MARL update's three
      layer shapes (actor layer 0 128->512, hidden 512->512, critic layer 0
      512->512 with the share obs read by every agent), B = 32,768 rows, for
@@ -51,6 +60,14 @@ Phases; any failure raises and the script exits non-zero:
   5c. OneAnt + PPO (E=4096, PPOConfig()): 1 warm-up iteration through
      PPO.run and 2 timed; 24 B1 launches each (with sensor outputs, one
      ant per env), finite observations of width 60;
+  5d. the slice's path through the CLI: cli.train.main(--task TenAnt
+     --algo ppo --randomize --num_envs 4096 --max_iterations 3) with the
+     env and PPO configured from cfg/ (a temporary --cfg_env copy of
+     cfg/TenAnt.yaml with frequency 8, and --episode_length 16, so every
+     env re-draws its parameters within the run): exactly 24 B1-DR and no
+     other B1 launch per iteration, counted from 0 before the phase; finite
+     losses; rollout ms, update ms and env-steps/s; the setup_only mass
+     kept and the damping re-drawn;
   6. TenAnt + MAPPO at full width (MarlConfig(): N=10, hidden 512, 3 fused
      blocks per tower, episode_length 8, 5 epochs, E=4096, the sequential
      schedule): 1 warm-up iteration through MarlRunner.run and 3 timed
@@ -66,10 +83,11 @@ Phases; any failure raises and the script exits non-zero:
      gradients and line searches ran them, inside the range the code
      allows; and one HATRPO iteration with FUSED_TOWER=1 (30 B2 from the
      linearizations, no B3, B4/B5 as counted);
-  7. one PPO, one PPO array-path, one OneAnt PPO, one MAPPO, one HATRPO and
-     one MAPPO FUSED_TOWER=1 iteration under torch.profiler: device time by
-     kernel group, the device's busy share (full lists in build/), and for
-     PPO a host-clock breakdown of one rollout step into its parts.
+  7. one PPO, one PPO --randomize (the CLI's trainer), one PPO array-path,
+     one OneAnt PPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1
+     iteration under torch.profiler: device time by kernel group, the
+     device's busy share (full lists in build/), and for both PPO runs a
+     host-clock breakdown of one rollout step into its parts.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -219,13 +237,14 @@ def fmt_split(split):
     return ", ".join(f"{g} {ms:.4f} ms" for g, ms in split.items())
 
 
-def check_kernel(fs, c, ops, label):
-    """Kernel vs plain version on the same operands; returns the worst
-    absolute error and raises on any tolerance break."""
+def check_kernel(fs, c, ops, label, dr=None):
+    """Kernel vs plain version on the same operands (dr: the DR operand or
+    None); returns the worst absolute error and raises on any tolerance
+    break."""
     import torch
-    got = fs.substep_kernel(c, A, *ops)
+    got = fs.substep_kernel(c, A, *ops, dr=dr)
     torch.cuda.synchronize()
-    ref = fs.substep_plain(c, A, *ops)
+    ref = fs.substep_plain(c, A, *ops, dr=dr)
     torch.cuda.synchronize()
     return compare_outputs(zip(TOL, got, ref), c.has_box, label)
 
@@ -258,11 +277,12 @@ def compare_outputs(triples, has_box, label, finite_only=True):
     return worst
 
 
-def substep_bound(per_art, n_art, n_box, table_numel, n_out):
+def substep_bound(per_art, n_art, n_box, table_numel, n_out, n_dr=0):
     """(bound ms, "bytes" | "operations", bytes) of one substep launch:
-    state, torques and box state read once, outputs written once; the
-    articulations' operations at the FP32 rate."""
-    nbytes = 4 * (n_art * (15 + 14 + 8) + n_box * (7 + 6) + table_numel + n_art * n_out)
+    state, torques, box state (and the n_dr DR fields) read once, outputs
+    written once; the articulations' operations at the FP32 rate."""
+    nbytes = 4 * (n_art * (15 + 14 + 8 + n_dr) + n_box * (7 + 6) + table_numel
+                  + n_art * n_out)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = per_art * n_art / FP32_OPS_PER_S * 1e3
     return (ops_ms, "operations", nbytes) if ops_ms >= bytes_ms else (bytes_ms, "bytes", nbytes)
@@ -357,6 +377,179 @@ def debug_tool_phase(fs):
     print(f"debug tool: B6/B1 launches {fs.debug_substep_kernel.launches}/"
           f"{fs.substep_kernel.launches} over the three scenarios")
     return fs.debug_substep_kernel.launches
+
+
+def tenant_dr_spec(root, armature=False):
+    """cfg/TenAnt.yaml's actor_params.ant spec, read by the port's YAML
+    loader; armature: with `maps_to: armature` on dof_properties.stiffness,
+    so the armature is randomized too."""
+    import copy
+    from massive_marl_tpu_torch.utils import yaml_lite
+    cfg = yaml_lite.load(os.path.join(root, "cfg", "TenAnt.yaml"))
+    spec = copy.deepcopy(cfg["task"]["randomization_params"]["actor_params"]["ant"])
+    if armature:
+        spec["dof_properties"]["stiffness"]["maps_to"] = "armature"
+    return spec
+
+
+def dr_kernel_phase(fs, env, root, dev):
+    """Phase 3d: B1's DR instantiation against its plain version at E x A
+    over the phase-3 families, both contact branches, with DrSamples drawn
+    from cfg/TenAnt.yaml's spec as the file is and with `maps_to: armature`
+    (the in-thread inverse inertias then see non-nominal armature).
+    Returns the row: worst error, ms, plain ms, bound ms, bound by, and B1's
+    ms in the same call."""
+    import torch
+    from massive_marl_tpu_torch.phys import dr as drm
+    from massive_marl_tpu_torch.phys.engine import ContactParams
+    consts = {"implicit": env.substep_consts,
+              "legacy": fs.scene_consts(env.spec._replace(contact=ContactParams(beta=None)))}
+    ops = make_states(env, E, 1, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    sys_ = env.spec.ant_sys
+    B = E * A
+    print(f"B1-DR vs plain at E={E} (B={B} articulations, a [{fs.DR_LEN}, B] DR operand):")
+    row = {"err": 0.0}
+    for name, armature in (("cfg/TenAnt.yaml", False), ("maps_to: armature", True)):
+        d = drm.sample_dr(sys_, tenant_dr_spec(root, armature), (E, A), g)
+        moved = {k: float((getattr(d, k) - getattr(drm.DrSample.identity(sys_), k)).abs().max())
+                 for k in ("mass", "damping", "armature", "jnt_lo", "jnt_hi")}
+        print(f"  sample {name}: max |value - nominal| " +
+              ", ".join(f"{k} {v:.4g}" for k, v in moved.items()))
+        if (moved["armature"] > 0) != armature:
+            raise AssertionError(f"DR sample {name}: armature moved {moved['armature']}")
+        dro = fs.pack_dr(d)
+        for branch, c in consts.items():
+            err = check_kernel(fs, c, ops, "DR " + branch[:3], dr=dro)
+            print(f"  {name}, {branch} branch: max abs err {err:.3e}"
+                  f"{' (bit-identical)' if err == 0.0 else ''}")
+            row["err"] = max(row["err"], err)
+    c = consts["implicit"]
+    row["ms"] = time_cuda_ms(lambda: fs.substep_kernel(c, A, *ops, dr=dro), KERNEL_REPS)
+    row["b1_ms"] = time_cuda_ms(lambda: fs.substep_kernel(c, A, *ops), KERNEL_REPS)
+    row["plain_ms"] = time_cuda_ms(lambda: fs.substep_plain(c, A, *ops, dr=dro), PLAIN_REPS,
+                                   warmup=1)
+    small = make_states(env, 1, 0, "cpu")
+    d1 = drm.sample_dr(sys_.to("cpu"), tenant_dr_spec(root, True), (1, A),
+                       torch.Generator().manual_seed(0))
+    per_art = count_ops(fs.substep_plain, c, A, *small, fs.pack_dr(d1)) / A
+    row["bound"], row["by"], nbytes = substep_bound(per_art, B, E, c.table.numel(), 59,
+                                                    n_dr=fs.DR_LEN)
+    print(f"  B1-DR {row['ms']:.4f} ms (median of {KERNEL_REPS}; B1 without DR {row['b1_ms']:.4f} "
+          f"ms in this call), plain {row['plain_ms']:.2f} ms; bound {row['bound']:.4f} ms by "
+          f"{row['by']} ({nbytes / 1e6:.2f} MB, {per_art:.0f} ops/articulation)")
+    return row
+
+
+def dr_paths_phase(fs, root, dev):
+    """Phase 3e: one control step of E TenAnt envs with one DrSample (the
+    armature variant of the spec) through fused_scene_step (B1-DR) and the
+    array engine's scene_step, from fresh resets (ants and box in the air,
+    hinges at their reset noise, some beyond their randomized limits), held
+    at the control-step tolerances of tests/test_torch_phys.py."""
+    import torch
+    from massive_marl_tpu_torch.envs.ant_scene import scene_step
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    from massive_marl_tpu_torch.utils import yaml_lite
+    cfg = yaml_lite.load(os.path.join(root, "cfg", "TenAnt.yaml"))
+    cfg["task"]["randomize"] = True
+    cfg["task"]["randomization_params"]["actor_params"]["ant"] = tenant_dr_spec(root, True)
+    env = TenAntEnv(cfg, device=dev, seed=1)
+    st = env.reset(E).pipeline
+    g = torch.Generator(device=dev).manual_seed(5)
+    actions = torch.rand(E, A, 8, generator=g, device=dev) * 2 - 1
+    n0 = fs.substep_kernel.dr_launches
+    got = fs.fused_scene_step(env.spec, st, actions, env.substep_consts)
+    ref = scene_step(env.spec, st, actions)
+    torch.cuda.synchronize()
+    if fs.substep_kernel.dr_launches - n0 != env.spec.substeps:
+        raise AssertionError("the kernel path did not run B1-DR once per substep")
+    lo, hi = st.dr.jnt_lo, st.dr.jnt_hi
+    beyond = int(((st.ant_qpos[..., 7:] < lo) | (st.ant_qpos[..., 7:] > hi)).sum())
+    print(f"B1-DR path vs array path, one TenAnt step at E={E} with one DrSample "
+          f"({beyond} hinges beyond their randomized limits at the start):")
+    for name, key in (("ant_qpos", "qpos"), ("ant_qvel", "qvel"), ("box_qpos", "qpos"),
+                      ("box_qvel", "qvel"), ("sensors", "sensors")):
+        compare_outputs([(key, getattr(got, name), getattr(ref, name))], True, name[:6])
+
+
+def cli_dr_phase(fs, root, dev):
+    """Phase 5d, the slice's path: cli.train.main(--task TenAnt --algo ppo
+    --randomize --num_envs E --max_iterations 3) with a --cfg_env copy of
+    cfg/TenAnt.yaml whose re-randomization frequency is 8 and
+    --episode_length 16, so every env resets at step 17 and re-draws its
+    parameters within the 24 steps.  Each iteration (PPO.train_iter, timed
+    here with synchronize) must launch exactly 24 B1-DR and no other B1;
+    the losses must be finite; the setup_only mass must stay and the
+    damping of the re-drawn envs change.  Returns the run's B1-DR launches
+    and the trainer."""
+    import tempfile
+    import torch
+    from massive_marl_tpu_torch.algos.rl.ppo import PPO
+    from massive_marl_tpu_torch.cli import train as cli
+    with open(os.path.join(root, "cfg", "TenAnt.yaml")) as fh:
+        text = fh.read()
+    if text.count("    frequency: 600\n") != 1:
+        raise AssertionError("cfg/TenAnt.yaml: no `frequency: 600` line to lower")
+    rows, snap = [], {}
+    orig = PPO.train_iter
+
+    def timed(self):
+        if not snap:
+            d = self.state.env_state.pipeline.dr
+            snap.update(mass=d.mass.clone(), damping=d.damping.clone())
+        n0, d0 = fs.substep_kernel.launches, fs.substep_kernel.dr_launches
+        m, roll_s, upd_s = timed_iteration(self)
+        rows.append((m, roll_s, upd_s, fs.substep_kernel.launches - n0,
+                     fs.substep_kernel.dr_launches - d0))
+        return m
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "TenAnt.yaml")
+        with open(path, "w") as fh:
+            fh.write(text.replace("    frequency: 600\n", "    frequency: 8\n"))
+        PPO.train_iter = timed
+        try:
+            fs.substep_kernel.launches = fs.substep_kernel.dr_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ppo = cli.main(["--task", "TenAnt", "--algo", "ppo", "--randomize", "--num_envs", str(E),
+                            "--max_iterations", "3", "--seed", "0", "--episode_length", "16",
+                            "--cfg_env", path])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            PPO.train_iter = orig
+    env = ppo.env
+    if (env.spec.contact.stiffness, ppo.num_envs, env.dr_frequency) != (2500.0, E, 8):
+        raise AssertionError("the CLI did not configure the run from the YAML files")
+    want = ppo.cfg.nsteps * env.spec.substeps
+    for it, (m, roll_s, upd_s, n, n_dr) in enumerate(rows):
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"CLI DR iteration {it}: non-finite metrics {m}")
+        if (n, n_dr) != (want, want):
+            raise AssertionError(f"CLI DR iteration {it}: {n} B1 launches, {n_dr} of them DR; "
+                                 f"expected {want}, all DR")
+        print(f"  CLI DR it {it}{' (warm-up)' if it == 0 else ''}: rollout {1e3 * roll_s:.1f} ms, "
+              f"update {1e3 * upd_s:.1f} ms; rew/step {m['mean_reward']:.3f}, vloss "
+              f"{m['mean_value_loss']:.3f}, surr {m['mean_surrogate_loss']:.4f}, "
+              f"B1-DR launches {n_dr}, other B1 {n - n_dr}")
+    timed_rows = rows[1:]
+    sps = statistics.median(ppo.cfg.nsteps * E / (r + u) for _, r, u, _, _ in timed_rows)
+    print(f"TenAnt+PPO --randomize through the CLI, E={E}: {sps:.1f} env-steps/s (median of "
+          f"{len(timed_rows)} after the warm-up), rollout "
+          f"{1e3 * statistics.median(r for _, r, _, _, _ in timed_rows):.1f} ms, update "
+          f"{1e3 * statistics.median(u for _, _, u, _, _ in timed_rows):.1f} ms; main() "
+          f"{wall:.1f} s in all")
+    d = ppo.state.env_state.pipeline.dr
+    redrawn = (d.damping != snap["damping"]).flatten(1).any(1)
+    if not torch.equal(d.mass, snap["mass"]) or int(redrawn.sum()) < 1:
+        raise AssertionError(f"re-randomization: mass kept {torch.equal(d.mass, snap['mass'])}, "
+                             f"{int(redrawn.sum())} envs with new damping")
+    print(f"  re-randomization: {int(redrawn.sum())} of {E} envs drew new damping, the "
+          f"setup_only mass of every env unchanged; contact stiffness "
+          f"{env.spec.contact.stiffness} from cfg/TenAnt.yaml")
+    return fs.substep_kernel.dr_launches, ppo
 
 
 def check_ppo(ppo, it, m, launches, want, width):
@@ -1083,6 +1276,11 @@ def main() -> int:
     # ---- 3c. the debug tool on the card
     b6_launches = debug_tool_phase(fs)
 
+    # ---- 3d. B1's DR instantiation vs its plain version; 3e. the two paths with one DrSample
+    dr_row = dr_kernel_phase(fs, env, root, dev)
+    dr_paths_phase(fs, root, dev)
+    torch.cuda.empty_cache()
+
     # ---- 4. B2/B3 vs plain versions at the MARL update's shapes
     print(f"B2/B3 vs plain at B={MLP_B} rows per agent:")
     mlp_err, mlp_main = mlp_phase(fm, dev)
@@ -1146,6 +1344,11 @@ def main() -> int:
     ppo_one = ppo_phase(OneAntEnv(device=dev, seed=0), "OneAnt+PPO", 2, per_iter, 60, dev)
     torch.cuda.empty_cache()
 
+    # ---- 5d. the slice's path: TenAnt + PPO with domain randomization through the CLI
+    print("TenAnt+PPO --randomize through cli.train (cfg/TenAnt.yaml, cfg/ppo/config.yaml):")
+    dr_launches, ppo_dr = cli_dr_phase(fs, root, dev)
+    torch.cuda.empty_cache()
+
     # ---- 6. TenAnt + MAPPO (then stacked, HAPPO, FUSED_TOWER=1, HATRPO) at full width
     marl_counts, tower_counts, (runner, tower, trpo) = marl_phase(dev)
 
@@ -1153,6 +1356,10 @@ def main() -> int:
     profile_iteration(ppo, os.path.join(root, "build", "profile_iteration.txt"), "PPO")
     rollout_step_parts(ppo)
     del ppo
+    profile_iteration(ppo_dr, os.path.join(root, "build", "profile_dr_iteration.txt"),
+                      "PPO --randomize (CLI)")
+    rollout_step_parts(ppo_dr)
+    del ppo_dr
     profile_iteration(ppo_arr, os.path.join(root, "build", "profile_array_iteration.txt"),
                       "PPO array path")
     profile_iteration(ppo_one, os.path.join(root, "build", "profile_one_ant_iteration.txt"),
@@ -1183,6 +1390,12 @@ def main() -> int:
          "launches": ppo_launches, "max_abs_err": max_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None},
+        {"name": "ant_substep_dr", "route": "cuda",
+         "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
+         "replaces": "massive_marl_tpu/ops/fused_substep.py:114",
+         "launches": dr_launches, "max_abs_err": dr_row["err"],
+         "ms": dr_row["ms"], "plain_ms": dr_row["plain_ms"], "bound_ms": dr_row["bound"],
+         "bound_by": dr_row["by"], "library_ms": None},
         mlp_entry("dense_elu_ln_fwd", "fwd", marl_counts[1], "fused_mlp.cu", 46, mlp_err,
                   mlp_main),
         mlp_entry("dense_elu_ln_bwd", "bwd", marl_counts[2], "fused_mlp.cu", 66, mlp_err,

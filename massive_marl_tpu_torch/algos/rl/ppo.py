@@ -49,7 +49,36 @@ class PPOConfig:
     clip_obs: float = 5.0
     clip_actions: float = 1.0
     max_iterations: int = 6500
+    save_interval: int = 1000       # read once checkpoints are ported
     use_clipped_value_loss: bool = True
+
+    @classmethod
+    def from_cfg_train(cls, cfg_train: dict) -> "PPOConfig":
+        """Build from a train YAML (cfg/ppo/config.yaml)."""
+        learn = cfg_train.get("learn", {})
+        pol = cfg_train.get("policy", {})
+        kw = {}
+        m = {
+            "nsteps": "nsteps", "noptepochs": "noptepochs", "nminibatches": "nminibatches",
+            "gamma": "gamma", "lam": "lam", "cliprange": "cliprange",
+            "ent_coef": "ent_coef", "max_grad_norm": "max_grad_norm",
+            "lr": "optim_stepsize", "desired_kl": "desired_kl",
+            "schedule": "schedule", "init_noise_std": "init_noise_std",
+            "max_iterations": "max_iterations", "save_interval": "save_interval",
+        }
+        for k, yk in m.items():
+            if yk in learn:
+                kw[k] = learn[yk]
+        if "pi_hid_sizes" in pol:
+            kw["hidden"] = tuple(pol["pi_hid_sizes"])
+        if "activation" in pol:
+            kw["activation"] = pol["activation"]
+        if "clip_observations" in cfg_train:
+            kw["clip_obs"] = cfg_train["clip_observations"]
+        if "clip_actions" in cfg_train:
+            kw["clip_actions"] = cfg_train["clip_actions"]
+        kw["lr"] = float(kw.get("lr", 3e-4))
+        return cls(**kw)
 
 
 @dataclass

@@ -8,8 +8,14 @@ action * gear * power_scale.  A control step runs either here on the array
 engine (`scene_step`, the reference's path off the TPU), or on the substep
 kernel (ops/fused_substep.fused_scene_step); both take the push-box's
 free-body substep from `box_substep`.  Joint damping and the joint-limit
-spring and damping integrate implicitly.  Domain randomization is not
-ported yet.
+spring and damping integrate implicitly.
+
+Domain randomization: with `dr_spec` set, state.dr holds a DrSample per ant
+([E, A, ...] leaves) that overrides mass, damping, armature and the joint
+limits on both paths; `dr_count` and `frame` drive the re-randomization
+gating and the schedules (phys/dr.py), and `corr_act` / `corr_obs` hold
+the standard-normal draws of the correlated action and observation noise
+until the env re-randomizes.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from massive_marl_tpu_torch.phys import dr as dr_mod
 from massive_marl_tpu_torch.phys import engine
 from massive_marl_tpu_torch.phys.system import System
 
@@ -31,6 +38,12 @@ class AntSceneState:
     sensors: torch.Tensor    # [E, A, 4, 6] foot contact wrenches (foot frame)
     dr_count: torch.Tensor   # [E] int32, steps since the last randomization
     frame: torch.Tensor      # [E] int32, frames lived
+    # with domain randomization: the per-ant DrSample ([E, A, ...] leaves)
+    # and the correlated noise draws ([E, *action shape], [E, obs]); the
+    # empty tuple without it
+    dr: Any = ()
+    corr_act: Any = ()
+    corr_obs: Any = ()
 
 
 class AntSceneSpec(NamedTuple):
@@ -83,10 +96,11 @@ def scene_step(spec: AntSceneSpec, state: AntSceneState, actions: torch.Tensor) 
     the solve.  Then the box's free-body substep with the ants' summed
     wrench.  The sensors are the last substep's.  As in the reference, the
     contacts always take the implicit branch here (the point inertia and the
-    substep are given), whatever ContactParams.beta is."""
-    if spec.dr_spec is not None:
-        raise NotImplementedError("domain randomization is not ported yet")
+    substep are given), whatever ContactParams.beta is.  With spec.dr_spec
+    set, every ant steps with its own parameters from state.dr."""
     sys, cp = spec.ant_sys, spec.contact
+    if spec.dr_spec is not None:
+        sys = state.dr.apply(sys)
     h = spec.dt / spec.substeps
     gravity = torch.tensor(spec.gravity, dtype=actions.dtype, device=actions.device)
     tau_act = actions * sys.gear * spec.power_scale
@@ -129,10 +143,14 @@ def scene_step(spec: AntSceneSpec, state: AntSceneState, actions: torch.Tensor) 
 def reset_scene(spec: AntSceneSpec, generator: torch.Generator, num_envs: int,
                 ant_start: torch.Tensor, box_start: Optional[torch.Tensor],
                 init_hinge: torch.Tensor, pos_noise: float = 0.2, vel_noise: float = 0.1,
-                frame: Optional[torch.Tensor] = None) -> AntSceneState:
+                frame: Optional[torch.Tensor] = None,
+                corr_shapes: Optional[Tuple[tuple, tuple]] = None) -> AntSceneState:
     """Fresh scene states for `num_envs` envs: roots at their spawn poses with
     zero velocity, hinge positions and rates perturbed uniformly.  As in the
-    original, one noise vector per env is shared by all of its ants."""
+    original, one noise vector per env is shared by all of its ants.  With
+    spec.dr_spec set, every ant gets its own DrSample (the schedules read
+    `frame`); corr_shapes (per-env action and observation shapes) draws the
+    correlated noise's standard normals."""
     sys = spec.ant_sys
     E, A, nj = num_envs, spec.num_ants, sys.nj
     dev = ant_start.device
@@ -150,8 +168,16 @@ def reset_scene(spec: AntSceneSpec, generator: torch.Generator, num_envs: int,
     else:
         box_qpos = quat.new_tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0]).expand(E, 7).clone()
     zeros_i = torch.zeros(E, dtype=torch.int32, device=dev)
+    dr, corr_act, corr_obs = (), (), ()
+    if spec.dr_spec is not None:
+        dr = dr_mod.sample_dr(sys, spec.dr_spec, (E, A), generator,
+                              None if frame is None else frame[:, None])
+    if corr_shapes is not None:
+        corr_act, corr_obs = (torch.randn((E,) + tuple(sh), generator=generator, device=dev)
+                              for sh in corr_shapes)
     return AntSceneState(
         ant_qpos=qpos, ant_qvel=qvel, box_qpos=box_qpos,
         box_qvel=torch.zeros((E, 6), device=dev),
         sensors=torch.zeros((E, A, max(sys.num_sensors, 1), 6), device=dev),
-        dr_count=zeros_i, frame=zeros_i.clone() if frame is None else frame.to(torch.int32))
+        dr_count=zeros_i, frame=zeros_i.clone() if frame is None else frame.to(torch.int32),
+        dr=dr, corr_act=corr_act, corr_obs=corr_obs)

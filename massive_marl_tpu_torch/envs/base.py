@@ -13,6 +13,8 @@ from typing import Any
 
 import torch
 
+from massive_marl_tpu_torch.phys import dr
+
 
 @dataclasses.dataclass
 class EnvState:
@@ -26,12 +28,14 @@ class EnvState:
 
 def finish_step(env, stepped, actions: torch.Tensor, state: EnvState) -> EnvState:
     """What follows the physics in an ant task's step: blow-up containment
-    (a non-finite env resets), the auto-reset overwrite, obs, reward.  Fresh
-    states are drawn for every env and selected where an env resets, as in
-    the reference.  `env` provides _fresh_pipeline, _carry_of, _obs and
-    _reward."""
+    (a non-finite env resets), the auto-reset overwrite, obs, reward, then
+    the observation noise of domain randomization (the reward reads the
+    clean obs).  Fresh states are drawn for every env and selected where an
+    env resets, as in the reference.  `env` provides _fresh_pipeline,
+    _carry_of, _obs, _reward, _dr_reset (`dr_reset`) and the attributes
+    `configure_dr` sets; `actions` are the policy's, before any noise."""
     E = actions.shape[0]
-    fresh = env._fresh_pipeline(E, frame=stepped.frame)
+    fresh = env._dr_reset(env._fresh_pipeline(E, frame=stepped.frame), stepped, state.pipeline)
     finite = (torch.isfinite(stepped.ant_qpos).flatten(1).all(1)
               & torch.isfinite(stepped.ant_qvel).flatten(1).all(1)
               & torch.isfinite(stepped.box_qpos).all(1)
@@ -42,8 +46,45 @@ def finish_step(env, stepped, actions: torch.Tensor, state: EnvState) -> EnvStat
     progress = torch.where(reset_now, 0, state.progress + 1).to(torch.int32)
     obs = env._obs(pipeline, actions)
     reward, done = env._reward(obs, actions, pipeline, carry_prev, progress)
+    if env.randomize:
+        obs = env._obs_noise(obs, env.generator, pipeline.frame, pipeline.corr_obs)
     return EnvState(pipeline=pipeline, carry=env._carry_of(pipeline),
                     progress=progress, done=done, obs=obs, reward=reward)
+
+
+def configure_dr(env, cfg) -> dict | None:
+    """Set an ant task's domain-randomization attributes from its cfg
+    (task.randomize, task.randomization_params): randomize, dr_frequency
+    (re-randomization gate in env steps), _dr_mass_setup_only, _obs_noise,
+    _act_noise.  Returns the actor_params.ant spec, None without DR."""
+    task_cfg = cfg.get("task", {})
+    env.randomize = bool(task_cfg.get("randomize", False))
+    rp = task_cfg.get("randomization_params", {}) or {}
+    dr_spec = (rp.get("actor_params", {}) or {}).get("ant") if env.randomize else None
+    env.dr_frequency = int(rp.get("frequency", 1))
+    rb = (dr_spec or {}).get("rigid_body_properties", {})
+    env._dr_mass_setup_only = bool(rb.get("mass", {}).get("setup_only", False))
+    env._obs_noise = dr.noise_fn(rp.get("observations") if env.randomize else None)
+    env._act_noise = dr.noise_fn(rp.get("actions") if env.randomize else None)
+    return dr_spec
+
+
+def dr_reset(env, fresh, stepped, prev):
+    """DR bookkeeping of the fresh states: an env draws new parameters (and
+    new correlated noise) only once it has lived `env.dr_frequency` steps
+    since its last randomization, else it keeps `prev`'s; a setup_only mass
+    keeps its first draw.  The identity without randomization."""
+    if not env.randomize:
+        return fresh
+    resample = stepped.dr_count >= env.dr_frequency
+    new_dr = select_tree(resample, fresh.dr, prev.dr)
+    if env._dr_mass_setup_only:
+        new_dr = dataclasses.replace(new_dr, mass=prev.dr.mass)
+    return dataclasses.replace(
+        fresh, dr=new_dr,
+        dr_count=torch.where(resample, 0, stepped.dr_count).to(torch.int32),
+        corr_act=select_tree(resample, fresh.corr_act, prev.corr_act),
+        corr_obs=select_tree(resample, fresh.corr_obs, prev.corr_obs))
 
 
 def select_tree(pred: torch.Tensor, a, b):

@@ -15,8 +15,8 @@ Every method works on a batch of envs.  The physics of `step_batch` runs
 through ops/fused_substep (the CUDA substep kernel with sensor outputs,
 num_ants = 1) unless `sim.fused_kernel` is false, which takes the array
 engine's envs/ant_scene.scene_step; "auto" keeps the kernel path on every
-device, as in TenAntEnv.  Domain randomization and the observation/action
-noise are not ported yet.
+device, as in TenAntEnv.  With task.randomize, domain randomization
+works as in TenAntEnv.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.envs import obs_math
 from massive_marl_tpu_torch.envs.ant_scene import (AntSceneSpec, AntSceneState, reset_scene,
                                                    scene_step)
-from massive_marl_tpu_torch.envs.base import EnvState, finish_step
+from massive_marl_tpu_torch.envs.base import EnvState, configure_dr, dr_reset, finish_step
 from massive_marl_tpu_torch.ops import fused_substep
 from massive_marl_tpu_torch.phys import mjcf
 from massive_marl_tpu_torch.phys.engine import ContactParams
@@ -66,8 +66,7 @@ class OneAntEnv:
         self.quat_reward_scale = 1.0
         self.ant_dist_reward_scale = 500.0
         self.goal_dist_reward_scale = 500.0
-        if cfg.get("task", {}).get("randomize", False):
-            raise NotImplementedError("domain randomization is not ported yet")
+        dr_spec = configure_dr(self, cfg)
 
         sim_cfg = cfg.get("sim", {})
         fused = sim_cfg.get("fused_kernel", "auto")
@@ -91,6 +90,7 @@ class OneAntEnv:
             ant_box_mu=None if abm is None else float(abm),
             box_ground_mu=None if bgm is None else float(bgm),
             contact=ContactParams(**(sim_cfg.get("contact", {}) or {})),
+            dr_spec=dr_spec,
         )
         self.substep_consts = fused_substep.scene_consts(self.spec)
         dev = self.device
@@ -102,7 +102,8 @@ class OneAntEnv:
 
     def _fresh_pipeline(self, num_envs: int, frame=None) -> AntSceneState:
         return reset_scene(self.spec, self.generator, num_envs, self.ant_start,
-                           self.box_start, self.init_hinge, frame=frame)
+                           self.box_start, self.init_hinge, frame=frame,
+                           corr_shapes=((8,), (60,)) if self.randomize else None)
 
     def _carry_of(self, pipeline: AntSceneState) -> OneAntCarry:
         return OneAntCarry(pos_before=pipeline.ant_qpos[:, 0, 0:2],
@@ -126,14 +127,16 @@ class OneAntEnv:
 
     def step_batch(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         """actions [E,8] -> the next EnvState."""
+        p = state.pipeline
+        applied = self._act_noise(actions, self.generator, p.frame, p.corr_act)[:, None, :]
         if self.use_fused:
-            stepped = fused_substep.fused_scene_step(self.spec, state.pipeline,
-                                                     actions[:, None, :], self.substep_consts)
+            stepped = fused_substep.fused_scene_step(self.spec, p, applied, self.substep_consts)
         else:
-            stepped = scene_step(self.spec, state.pipeline, actions[:, None, :])
+            stepped = scene_step(self.spec, p, applied)
         return self._finish_step(stepped, actions, state)
 
     _finish_step = finish_step
+    _dr_reset = dr_reset
 
     def _reward(self, obs, actions, pipeline: AntSceneState, carry: OneAntCarry, progress):
         """Reward and done flags, [E] each."""

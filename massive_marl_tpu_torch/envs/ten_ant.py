@@ -15,6 +15,14 @@ through ops/fused_substep (the CUDA substep kernel on the card) unless
 envs/ant_scene.scene_step.  "auto" (the default) keeps the kernel path on
 every device, CPU included, where the kernel wrapper runs its plain version;
 the JAX package's "auto" means the kernel only on a TPU.
+
+With task.randomize (cfg/TenAnt.yaml's randomization_params), every ant
+steps with its own randomized mass, damping, armature and joint limits
+(phys/dr.py; on the kernel path B1's DR instantiation), an env re-draws
+them at a reset once `frequency` steps have passed (`_dr_reset`; the
+setup_only mass keeps its first draw), the actions get their noise before
+the physics and the observations theirs after the reward, which reads the
+clean ones.  The observations keep the nominal joint limits.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.envs import obs_math
 from massive_marl_tpu_torch.envs.ant_scene import (AntSceneSpec, AntSceneState, reset_scene,
                                                    scene_step)
-from massive_marl_tpu_torch.envs.base import EnvState, finish_step
+from massive_marl_tpu_torch.envs.base import EnvState, configure_dr, dr_reset, finish_step
 from massive_marl_tpu_torch.ops import fused_substep
 from massive_marl_tpu_torch.phys import mjcf
 from massive_marl_tpu_torch.phys.engine import ContactParams
@@ -68,8 +76,7 @@ class TenAntEnv:
         self.quat_reward_scale = 0.0
         self.ant_dist_reward_scale = 500.0
         self.goal_dist_reward_scale = 500.0
-        if cfg.get("task", {}).get("randomize", False):
-            raise NotImplementedError("domain randomization is not ported yet")
+        dr_spec = configure_dr(self, cfg)
 
         sim_cfg = cfg.get("sim", {})
         plane_cfg = env_cfg.get("plane", {}) or {}
@@ -94,6 +101,7 @@ class TenAntEnv:
             ant_box_mu=None if abm is None else float(abm),
             box_ground_mu=None if bgm is None else float(bgm),
             contact=ContactParams(**(sim_cfg.get("contact", {}) or {})),
+            dr_spec=dr_spec,
         )
         self.substep_consts = fused_substep.scene_consts(self.spec)
         dev = self.device
@@ -114,7 +122,8 @@ class TenAntEnv:
 
     def _fresh_pipeline(self, num_envs: int, frame=None) -> AntSceneState:
         return reset_scene(self.spec, self.generator, num_envs, self.ant_start,
-                           self.box_start, self.init_hinge, frame=frame)
+                           self.box_start, self.init_hinge, frame=frame,
+                           corr_shapes=((10, 8), (388,)) if self.randomize else None)
 
     def _carry_of(self, pipeline: AntSceneState) -> TenAntCarry:
         return TenAntCarry(pos_before=pipeline.ant_qpos[..., 0:2],
@@ -141,14 +150,16 @@ class TenAntEnv:
     def step_batch(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         """actions [E,80] (joint-action layout) -> the next EnvState."""
         actions = actions.reshape(actions.shape[0], 10, 8)
+        p = state.pipeline
+        applied = self._act_noise(actions, self.generator, p.frame, p.corr_act)
         if self.use_fused:
-            stepped = fused_substep.fused_scene_step(self.spec, state.pipeline, actions,
-                                                     self.substep_consts)
+            stepped = fused_substep.fused_scene_step(self.spec, p, applied, self.substep_consts)
         else:
-            stepped = scene_step(self.spec, state.pipeline, actions)
+            stepped = scene_step(self.spec, p, applied)
         return self._finish_step(stepped, actions, state)
 
     _finish_step = finish_step
+    _dr_reset = dr_reset
 
     def _reward(self, obs, actions, pipeline: AntSceneState, carry: TenAntCarry, progress):
         """Shared team reward and done flags, [E] each."""

@@ -4,19 +4,32 @@
 // Replaces two TPU kernels with one templated body:
 //   B1 massive_marl_tpu/ops/fused_substep.py::_substep_kernel (a pallas_call
 //      whose body is massive_marl_tpu/ops/scalar_phys.py::substep with
-//      _contact_force), launched by substep_launch as <LEGACY, true>, LEGACY
-//      from the table's flag (ContactParams.beta None);
+//      _contact_force), launched by substep_launch as <LEGACY, true, DR>,
+//      LEGACY from the table's flag (ContactParams.beta None), DR when the
+//      caller passes the domain-randomization operand;
 //   B6 scripts/debug_fused_tpu.py::kernel_fn (B1's body under beta=None,
 //      without the sensor outputs, the box state given per articulation),
-//      launched by debug_substep_launch as <true, false>.
+//      launched by debug_substep_launch as <true, false, false>.
 // LEGACY selects the reference's explicit spring-damper contact branch
 // (fn = max(kn depth - kd vn, 0), friction ramped over friction_vel), which
 // reads no inverse inertia; SENSORS writes the foot-sensor wrenches.  Both
-// are compile-time, so the main path's <false, true> is the code it was
-// before the legacy branch came in.  The plain PyTorch version with the same
-// arithmetic is massive_marl_tpu_torch/ops/scalar_phys.py::substep; both read
-// the same flat constant table (scalar_phys.bake_consts), whose field order
-// the O_* offsets below repeat.
+// are compile-time, so the main path's <false, true, false> is the code it
+// was before the legacy branch came in.
+//
+// DR reads five parameter groups per articulation from one more [41, B]
+// operand (mass [9], damping, armature, jnt_lo, jnt_hi [8 each], in the
+// order of the reference's _dr_field_layout) where the other instantiations
+// read the table, and recomputes in-thread what the table bakes from them:
+// the inverse masses (true divisions), the armature-augmented inverse
+// inertias of the bodies below the torso (the closed-form symmetric 3x3
+// inverse, at the point of use, one body at a time) and the composite
+// masses (children into parents from the last body).  Each value is loaded
+// where it is used, so none of the 41 stays live across the kernel.
+//
+// The plain PyTorch version with the same arithmetic is
+// massive_marl_tpu_torch/ops/scalar_phys.py::substep; both read the same
+// flat constant table (scalar_phys.bake_consts), whose field order the O_*
+// offsets below repeat.
 //
 // Per thread, in the reference's order:
 //   1. forward kinematics over the body tree;
@@ -109,6 +122,14 @@ constexpr int FIXED_LEN = O_INERTIA_INV_AUG + NB * 9;
 // then, for P contact points: point_local [P*3], point_radius [P],
 // mu_plane [P], mu_box [P]
 
+// ---- DR operand fields (ops/fused_substep.py::DR_LAYOUT) ----
+constexpr int D_MASS = 0;
+constexpr int D_DAMPING = D_MASS + NB;
+constexpr int D_ARMATURE = D_DAMPING + NJ;
+constexpr int D_JNT_LO = D_ARMATURE + NJ;
+constexpr int D_JNT_HI = D_JNT_LO + NJ;
+constexpr int DR_LEN = D_JNT_HI + NJ;
+
 constexpr int THREADS = 128;
 
 struct V3 { float x, y, z; };
@@ -187,6 +208,25 @@ __device__ __forceinline__ M33 qmat(Q4 q) {
   r.m[1][0] = 2 * (xy + wz); r.m[1][1] = 1 - 2 * (xx + zz); r.m[1][2] = 2 * (yz - wx);
   r.m[2][0] = 2 * (xz - wy); r.m[2][1] = 2 * (yz + wx); r.m[2][2] = 1 - 2 * (xx + yy);
   return r;
+}
+
+// inverse of K + arm * 1 for a symmetric row-major K (scalar_phys's
+// _inv3x3_sym_t, operation for operation), row-major into out
+__device__ __forceinline__ void inv3x3_sym_aug(const float* K, float arm, float* out) {
+  const float a = K[0] + arm, b = K[1], c = K[2];
+  const float d = K[4] + arm, e = K[5];
+  const float f = K[8] + arm;
+  const float A = d * f - e * e;
+  const float B = c * e - b * f;
+  const float C = b * e - c * d;
+  const float det = a * A + b * B + c * C;
+  const float D = a * f - c * c;
+  const float E = b * c - a * e;
+  const float F = a * d - b * b;
+  const float inv = 1.0f / det;
+  out[0] = A * inv; out[1] = B * inv; out[2] = C * inv;
+  out[3] = B * inv; out[4] = D * inv; out[5] = E * inv;
+  out[6] = C * inv; out[7] = E * inv; out[8] = F * inv;
 }
 
 // spatial six-vectors [w0, w1, w2, p0, p1, p2]
@@ -269,19 +309,24 @@ __device__ __forceinline__ V3 contact_force(float depth, V3 n, V3 v_rel, float m
   }
 }
 
-template <bool LEGACY, bool SENSORS>
+template <bool LEGACY, bool SENSORS, bool DR>
 __global__ void __launch_bounds__(THREADS)
 substep_kernel(const float* __restrict__ table, int table_len, int P, int num_ants, int B, int E,
-               const float* __restrict__ qpos_in, const float* __restrict__ qvel_in,
-               const float* __restrict__ tau_in, const float* __restrict__ box_qpos_in,
-               const float* __restrict__ box_qvel_in, float* __restrict__ qpos_out,
-               float* __restrict__ qvel_out, float* __restrict__ wrench_out,
-               float* __restrict__ sens_out) {
+               const float* __restrict__ dr, const float* __restrict__ qpos_in,
+               const float* __restrict__ qvel_in, const float* __restrict__ tau_in,
+               const float* __restrict__ box_qpos_in, const float* __restrict__ box_qvel_in,
+               float* __restrict__ qpos_out, float* __restrict__ qvel_out,
+               float* __restrict__ wrench_out, float* __restrict__ sens_out) {
   extern __shared__ float T[];
   for (int k = threadIdx.x; k < table_len; k += blockDim.x) T[k] = table[k];
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
+  // a per-articulation parameter: field k of the DR operand, else the table's
+  auto param = [&](int k, float nominal) -> float {
+    if constexpr (DR) return __ldg(dr + k * B + i);
+    else return nominal;
+  };
 
   const float* point_local = T + FIXED_LEN;
   const float* point_radius = point_local + 3 * P;
@@ -378,7 +423,16 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
     WFn w;
-    if constexpr (!LEGACY) {
+    if constexpr (!LEGACY && DR) {
+      if (b > 0) {
+        float K[9];
+        inv3x3_sym_aug(T + O_INERTIA + 9 * b, __ldg(dr + (D_ARMATURE + b - 1) * B + i), K);
+        w.I = rotate_tensor(R[b], K);
+      } else {
+        w.I = rotate_tensor(R[b], T + O_INERTIA_INV_AUG);
+      }
+      w.im = 1.0f / __ldg(dr + (D_MASS + b) * B + i);
+    } else if constexpr (!LEGACY) {
       w.I = rotate_tensor(R[b], T + O_INERTIA_INV_AUG + 9 * b);
       w.im = T[O_INV_MASS + b];
     }
@@ -463,7 +517,7 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
   for (int b = 0; b < NB; ++b) {
     const M33 Iw = rotate_tensor(R[b], T + O_INERTIA + 9 * b);
     const V3 cr = sub(com_w[b], base);
-    const float m = T[O_MASS + b];
+    const float m = param(D_MASS + b, T[O_MASS + b]);
     M33 cx;
     cx.m[0][0] = 0.f; cx.m[0][1] = -cr.z; cx.m[0][2] = cr.y;
     cx.m[1][0] = cr.z; cx.m[1][1] = 0.f; cx.m[1][2] = -cr.x;
@@ -498,9 +552,13 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
       }
 #pragma unroll
     for (int k = 0; k < 6; ++k) fs[par].a[k] = fs[par].a[k] + fs[b].a[k];
+    // Ic[b].m is b's composite mass by now: its children come after it
+    if constexpr (DR) Ic[par].m = Ic[par].m + Ic[b].m;
   }
+  if constexpr (!DR) {
 #pragma unroll
-  for (int b = 0; b < NB; ++b) Ic[b].m = T[O_COMP_MASS + b];
+    for (int b = 0; b < NB; ++b) Ic[b].m = T[O_COMP_MASS + b];
+  }
 
   // mass matrix, packed lower triangle L[j*(j+1)/2 + i] for i <= j
   float L[NL];
@@ -527,14 +585,14 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
   for (int j = 0; j < NJ; ++j) {
     const int d = 6 + j;
     const float qj = q[7 + j], qdj = qd[d];
-    const float below = jmax(T[O_JNT_LO + j] - qj, 0.f);
-    const float above = jmax(qj - T[O_JNT_HI + j], 0.f);
+    const float below = jmax(param(D_JNT_LO + j, T[O_JNT_LO + j]) - qj, 0.f);
+    const float above = jmax(qj - param(D_JNT_HI + j, T[O_JNT_HI + j]), 0.f);
     const bool viol = below > 0.f || above > 0.f;
     const float t_lim = limit_k * (below - above);
-    const float D = T[O_DAMPING + j] + (viol ? limit_damp : 0.f);
+    const float D = param(D_DAMPING + j, T[O_DAMPING + j]) + (viol ? limit_damp : 0.f);
     const float K = viol ? limit_k : 0.f;
     float& Mjj = L[d * (d + 1) / 2 + d];
-    Mjj = Mjj + T[O_ARMATURE + j];
+    Mjj = Mjj + param(D_ARMATURE + j, T[O_ARMATURE + j]);
     Mjj = Mjj + h * D + h2 * K;
     rhs[d] = tau[j] + t_lim - (D + h * K) * qdj - C[d];
   }
@@ -606,25 +664,47 @@ substep_kernel(const float* __restrict__ table, int table_len, int P, int num_an
 
 extern "C" int substep_table_len(int P) { return FIXED_LEN + 6 * P; }
 
+namespace {
+template <bool LEGACY, bool SENSORS, bool DR>
+void launch(const void* table, int table_len, int P, int num_ants, int B, int E, const void* dr,
+            const void* qpos, const void* qvel, const void* tau, const void* box_qpos,
+            const void* box_qvel, void* qpos_out, void* qvel_out, void* wrench_out,
+            void* sens_out, void* stream) {
+  const int blocks = (B + THREADS - 1) / THREADS;
+  substep_kernel<LEGACY, SENSORS, DR><<<blocks, THREADS, table_len * sizeof(float),
+                                        (cudaStream_t)stream>>>(
+      (const float*)table, table_len, P, num_ants, B, E, (const float*)dr, (const float*)qpos,
+      (const float*)qvel, (const float*)tau, (const float*)box_qpos, (const float*)box_qvel,
+      (float*)qpos_out, (float*)qvel_out, (float*)wrench_out, (float*)sens_out);
+}
+}  // namespace
+
 // Launches on `stream`; allocates nothing.  Returns cudaGetLastError().
-// B1: `legacy` is the table's legacy flag (the caller's host copy of it).
+// B1: `legacy` is the table's legacy flag (the caller's host copy of it);
+// `dr` is the [DR_LEN, B] domain-randomization operand, or null for the
+// table's parameters.
 extern "C" int substep_launch(const void* table, int table_len, int P, int num_ants, int B, int E,
-                              int legacy, const void* qpos, const void* qvel, const void* tau,
-                              const void* box_qpos, const void* box_qvel, void* qpos_out,
-                              void* qvel_out, void* wrench_out, void* sens_out, void* stream) {
+                              int legacy, const void* dr, const void* qpos, const void* qvel,
+                              const void* tau, const void* box_qpos, const void* box_qvel,
+                              void* qpos_out, void* qvel_out, void* wrench_out, void* sens_out,
+                              void* stream) {
   if (B > 0) {
-    const int blocks = (B + THREADS - 1) / THREADS;
-    const size_t smem = table_len * sizeof(float);
-    if (legacy)
-      substep_kernel<true, true><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-          (const float*)table, table_len, P, num_ants, B, E, (const float*)qpos, (const float*)qvel,
-          (const float*)tau, (const float*)box_qpos, (const float*)box_qvel, (float*)qpos_out,
-          (float*)qvel_out, (float*)wrench_out, (float*)sens_out);
+    if (legacy && dr)
+      launch<true, true, true>(table, table_len, P, num_ants, B, E, dr, qpos, qvel, tau,
+                               box_qpos, box_qvel, qpos_out, qvel_out, wrench_out, sens_out,
+                               stream);
+    else if (legacy)
+      launch<true, true, false>(table, table_len, P, num_ants, B, E, dr, qpos, qvel, tau,
+                                box_qpos, box_qvel, qpos_out, qvel_out, wrench_out, sens_out,
+                                stream);
+    else if (dr)
+      launch<false, true, true>(table, table_len, P, num_ants, B, E, dr, qpos, qvel, tau,
+                                box_qpos, box_qvel, qpos_out, qvel_out, wrench_out, sens_out,
+                                stream);
     else
-      substep_kernel<false, true><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-          (const float*)table, table_len, P, num_ants, B, E, (const float*)qpos, (const float*)qvel,
-          (const float*)tau, (const float*)box_qpos, (const float*)box_qvel, (float*)qpos_out,
-          (float*)qvel_out, (float*)wrench_out, (float*)sens_out);
+      launch<false, true, false>(table, table_len, P, num_ants, B, E, dr, qpos, qvel, tau,
+                                 box_qpos, box_qvel, qpos_out, qvel_out, wrench_out, sens_out,
+                                 stream);
   }
   return (int)cudaGetLastError();
 }
@@ -635,13 +715,8 @@ extern "C" int debug_substep_launch(const void* table, int table_len, int P, int
                                     const void* qpos, const void* qvel, const void* tau,
                                     const void* box_qpos, const void* box_qvel, void* qpos_out,
                                     void* qvel_out, void* wrench_out, void* stream) {
-  if (B > 0) {
-    const int blocks = (B + THREADS - 1) / THREADS;
-    substep_kernel<true, false><<<blocks, THREADS, table_len * sizeof(float),
-                                  (cudaStream_t)stream>>>(
-        (const float*)table, table_len, P, 1, B, B, (const float*)qpos, (const float*)qvel,
-        (const float*)tau, (const float*)box_qpos, (const float*)box_qvel, (float*)qpos_out,
-        (float*)qvel_out, (float*)wrench_out, nullptr);
-  }
+  if (B > 0)
+    launch<true, false, false>(table, table_len, P, 1, B, B, nullptr, qpos, qvel, tau, box_qpos,
+                               box_qvel, qpos_out, qvel_out, wrench_out, nullptr, stream);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,9 @@ last substep are kept, as the reference does.
 raises), a CPU tensor goes to the plain version in scalar_phys.  There is no
 other fallback.  A table baked from `ContactParams(beta=None)` runs the
 kernel's legacy instantiation (the reference's explicit contact branch).
+With domain randomization (spec.dr_spec set) the scene's DrSample travels
+as one more [41, B] operand (`pack_dr`, fields in DR_LAYOUT's order) and
+runs the kernel's DR instantiation of either branch.
 
 The same source holds B6 (`DebugSubstepKernel`, dispatched by
 `debug_substep_soa`): the counterpart of scripts/debug_fused_tpu.py's
@@ -32,6 +35,27 @@ from massive_marl_tpu_torch.ops import _build
 from massive_marl_tpu_torch.ops import scalar_phys as sp
 
 NQ, NV, NU = sp.NQ, sp.NV, sp.NJ
+# the DR operand's fields, in order (massive_marl_tpu's _dr_field_layout)
+DR_LAYOUT = (("mass", sp.NB), ("damping", sp.NJ), ("armature", sp.NJ), ("jnt_lo", sp.NJ),
+             ("jnt_hi", sp.NJ))
+DR_LEN = sum(n for _, n in DR_LAYOUT)
+
+
+def pack_dr(d) -> torch.Tensor:
+    """A DrSample with [..., n] leaves -> the contiguous float32 [41, B]
+    operand, B the product of the leading dimensions."""
+    fields = [getattr(d, name) for name, _ in DR_LAYOUT]
+    B = fields[0][..., 0].numel()
+    return torch.cat([x.reshape(B, -1) for x in fields], dim=1).to(torch.float32).t().contiguous()
+
+
+def unpack_dr(dr: torch.Tensor) -> dict:
+    """The [41, B] operand -> scalar_phys.substep's dr dict of [B] rows."""
+    out, off = {}, 0
+    for name, n in DR_LAYOUT:
+        out[name] = list(dr[off:off + n])
+        off += n
+    return out
 
 
 def _check_operands(expect, dev):
@@ -53,41 +77,53 @@ def _device_table(lib, c: sp.AntConsts, dev):
     return table
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
 class SubstepKernel:
     """ctypes binding of csrc/substep.cu's B1 launcher.  `launches` counts
-    kernel launches (and nothing else), `legacy_launches` those of the
-    legacy instantiation among them; the library is built and loaded at
-    first use."""
+    kernel launches (and nothing else); `legacy_launches` and `dr_launches`
+    count those of the legacy and the DR instantiations among them.  The
+    library is built and loaded at first use.  signatures: {function:
+    (argtypes, restype)} of the source's C interface."""
+
+    source = "substep.cu"
+    signatures = {
+        "substep_table_len": ([_I], _I),
+        "substep_launch": ([_P] + [_I] * 6 + [_P] * 11, _I),
+        "debug_substep_launch": ([_P] + [_I] * 3 + [_P] * 9, _I),
+    }
 
     def __init__(self):
         self.launches = 0
         self.legacy_launches = 0
+        self.dr_launches = 0
         self.build_result = None
         self._lib = None
 
     def load(self):
         if self._lib is None:
-            res = _build.build("substep.cu")
+            res = _build.build(self.source)
             lib = ctypes.CDLL(res.path)
-            lib.substep_table_len.argtypes = [ctypes.c_int]
-            lib.substep_table_len.restype = ctypes.c_int
-            lib.substep_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
-                                           + [ctypes.c_void_p] * 10)
-            lib.substep_launch.restype = ctypes.c_int
-            lib.debug_substep_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                                                 + [ctypes.c_void_p] * 9)
-            lib.debug_substep_launch.restype = ctypes.c_int
+            for name, (argtypes, restype) in self.signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
             self._lib, self.build_result = lib, res
         return self._lib
 
-    def __call__(self, c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel):
+    def __call__(self, c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel, dr=None):
         """c: the baked table (its legacy flag picks the instantiation);
         qpos [15,B], qvel [14,B], tau [8,B]; box_* [7|6, E] (E = B /
-        num_ants).  Returns (qpos', qvel', wrench [6,B], sensors [24,B])."""
+        num_ants); dr: the [41,B] DR operand (pack_dr) or None for the
+        table's parameters.  Returns (qpos', qvel', wrench [6,B], sensors
+        [24,B])."""
         dev = qpos.device
         B, E = qpos.shape[1], box_qpos.shape[1]
-        _check_operands({"qpos": (qpos, (NQ, B)), "qvel": (qvel, (NV, B)), "tau": (tau, (NU, B)),
-                         "box_qpos": (box_qpos, (7, E)), "box_qvel": (box_qvel, (6, E))}, dev)
+        expect = {"qpos": (qpos, (NQ, B)), "qvel": (qvel, (NV, B)), "tau": (tau, (NU, B)),
+                  "box_qpos": (box_qpos, (7, E)), "box_qvel": (box_qvel, (6, E))}
+        if dr is not None:
+            expect["dr"] = (dr, (DR_LEN, B))
+        _check_operands(expect, dev)
         if B != E * num_ants:
             raise ValueError(f"B={B} articulations is not E={E} envs x {num_ants} ants")
         lib = self.load()
@@ -99,6 +135,7 @@ class SubstepKernel:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.substep_launch(
             table.data_ptr(), table.numel(), c.P, num_ants, B, E, int(c.legacy),
+            None if dr is None else dr.data_ptr(),
             qpos.data_ptr(), qvel.data_ptr(), tau.data_ptr(), box_qpos.data_ptr(),
             box_qvel.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
             wrench.data_ptr(), sens.data_ptr(), stream)
@@ -106,6 +143,7 @@ class SubstepKernel:
             raise RuntimeError(f"substep kernel launch failed with CUDA error {err}")
         self.launches += 1
         self.legacy_launches += int(c.legacy)
+        self.dr_launches += int(dr is not None)
         return qpos_out, qvel_out, wrench, sens
 
 
@@ -150,25 +188,26 @@ class DebugSubstepKernel:
 debug_substep_kernel = DebugSubstepKernel()
 
 
-def substep_plain(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel):
+def substep_plain(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel, dr=None):
     """The plain PyTorch version on the same [field, B] operands."""
     bq = box_qpos.repeat_interleave(num_ants, dim=1) if c.has_box else None
     bv = box_qvel.repeat_interleave(num_ants, dim=1) if c.has_box else None
     nqp, nqv, wr, sens = sp.substep(c, list(qpos), list(qvel), list(tau),
                                     None if bq is None else list(bq),
-                                    None if bv is None else list(bv))
+                                    None if bv is None else list(bv),
+                                    dr=None if dr is None else unpack_dr(dr))
     wrench = torch.stack(wr) if wr is not None else qpos.new_zeros((6, qpos.shape[1]))
     return (torch.stack(nqp), torch.stack(nqv), wrench,
             torch.stack([x for s in sens for x in s]))
 
 
-def substep_soa(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel):
-    """One substep on [field, B] operands: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def substep_soa(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel, dr=None):
+    """One substep on [field, B] operands (dr: the [41, B] DR operand or
+    None): the kernel for CUDA tensors, the plain version for CPU tensors."""
     if qpos.device.type == "cuda":
-        return substep_kernel(c, num_ants, qpos, qvel, tau, box_qpos, box_qvel)
+        return substep_kernel(c, num_ants, qpos, qvel, tau, box_qpos, box_qvel, dr)
     if qpos.device.type == "cpu":
-        return substep_plain(c, num_ants, qpos, qvel, tau, box_qpos, box_qvel)
+        return substep_plain(c, num_ants, qpos, qvel, tau, box_qpos, box_qvel, dr)
     raise ValueError(f"no substep for device {qpos.device}")
 
 
@@ -215,9 +254,9 @@ def fused_scene_step(spec, state, actions: torch.Tensor, consts: sp.AntConsts | 
 
     spec: AntSceneSpec; state: AntSceneState with a leading env axis
     (ant_qpos [E,A,15], box_qpos [E,7]); actions [E,A,8] in [-1,1].
-    consts: the baked table (scene_consts(spec)), baked here when None."""
-    if spec.dr_spec is not None:
-        raise NotImplementedError("domain randomization is not ported yet")
+    consts: the baked table (scene_consts(spec)), baked here when None.
+    With spec.dr_spec set, state.dr's per-ant parameters go to every launch
+    as the DR operand."""
     c = consts if consts is not None else scene_consts(spec)
     E, A = actions.shape[0], spec.num_ants
     B = E * A
@@ -228,10 +267,11 @@ def fused_scene_step(spec, state, actions: torch.Tensor, consts: sp.AntConsts | 
     qpos = state.ant_qpos.reshape(B, NQ).t().contiguous()
     qvel = state.ant_qvel.reshape(B, NV).t().contiguous()
     tau = tau.reshape(B, NU).t().contiguous()
+    dr = pack_dr(state.dr) if spec.dr_spec is not None else None
     bq, bv = state.box_qpos, state.box_qvel
     for _ in range(spec.substeps):
         qpos, qvel, wrench, sens = substep_soa(c, A, qpos, qvel, tau,
-                                               bq.t().contiguous(), bv.t().contiguous())
+                                               bq.t().contiguous(), bv.t().contiguous(), dr)
         if has_box:
             bq, bv = box_substep(spec, bq, bv, wrench.reshape(6, E, A).sum(-1).t(), h)
 

@@ -76,8 +76,10 @@ class SubstepParams:
                                         # not read on the legacy branch
 
 
-def _inv3x3_sym_t(m):
-    """Closed-form inverse of a symmetric 3x3 of Python floats."""
+def _inv3x3_sym_t(m, one=1.0):
+    """Closed-form inverse of a symmetric 3x3 given as nested tuples of
+    Python floats, or of [B] tensors (then `one` is a tensor of ones, so the
+    reciprocal is a true division, as in the kernel)."""
     a, b, cc = m[0][0], m[0][1], m[0][2]
     d, e, f = m[1][1], m[1][2], m[2][2]
     A = d * f - e * e
@@ -87,7 +89,7 @@ def _inv3x3_sym_t(m):
     D = a * f - cc * cc
     E = b * cc - a * e
     F = a * d - b * b
-    inv = 1.0 / det
+    inv = one / det
     return ((A * inv, B * inv, C * inv), (B * inv, D * inv, E * inv), (C * inv, E * inv, F * inv))
 
 
@@ -335,11 +337,17 @@ def _vec(flat, k, n):
 # ---------------------------------------------------------------------------
 
 def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
-            box_qpos: Sequence | None = None, box_qvel: Sequence | None = None):
+            box_qpos: Sequence | None = None, box_qvel: Sequence | None = None,
+            dr: dict | None = None):
     """One physics substep in scalar form (plain version of the kernel).
 
     qpos: 15 [B] tensors, qvel: 14, tau_act: 8 (actuation only); box_*: the
     box state broadcast per articulation (ignored when the table has no box).
+    dr: per-articulation parameters (domain randomization), lists of [B]
+    tensors {mass [9], damping, armature, jnt_lo, jnt_hi [8 each]} in place
+    of the table's; the quantities baked from them (inverse masses, the
+    armature-augmented inverse inertias, the composite masses) are then
+    computed per lane in the kernel's order, with true divisions.
     Returns (qpos' list, qvel' list, box wrench six-tuple or None, sensor
     wrenches: one (fx,fy,fz,tx,ty,tz) per foot sensor in the foot frame)."""
     f = c.f
@@ -351,8 +359,9 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
     fv = f["friction_vel"][0]
     limit_k, limit_damp = f["limit_k"][0], f["limit_damp"][0]
     gravity = tuple(f["gravity"])
-    mass, armature, damping = f["mass"], f["armature"], f["damping"]
-    jnt_lo, jnt_hi = f["jnt_lo"], f["jnt_hi"]
+    src = dr if dr else f
+    mass, armature, damping = src["mass"], src["armature"], src["damping"]
+    jnt_lo, jnt_hi = src["jnt_lo"], src["jnt_hi"]
     has_box = c.has_box
 
     base = (qpos[0], qpos[1], qpos[2])
@@ -410,10 +419,19 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
             bIinvw = m33_mmt(m33_mm(bR, _rows3(f["box_inv_inertia"], 0)), bR)
 
     # per-body world inverse inertia (armature-augmented) for the contact
-    # effective mass; the legacy branch reads none
+    # effective mass; the legacy branch reads none.  Under DR the bodies
+    # below the torso invert inertia + armature * 1 per lane (every entry a
+    # tensor, so each product rounds in float32 as in the kernel)
     if clamp:
-        I_inv_w = [m33_mmt(m33_mm(R[b], _rows3(f["inertia_inv_aug"], b)), R[b])
-                   for b in range(nb)]
+        I_inv_w = []
+        for b in range(nb):
+            I_inv_b = _rows3(f["inertia_inv_aug"], b)
+            if dr and b > 0:
+                I_b = [[zero + x for x in row] for row in _rows3(f["inertia"], b)]
+                for k in range(3):
+                    I_b[k][k] = I_b[k][k] + armature[b - 1]
+                I_inv_b = _inv3x3_sym_t(I_b, one)
+            I_inv_w.append(m33_mmt(m33_mm(R[b], I_inv_b), R[b]))
 
     for p_i in range(c.P):
         b = c.point_body[p_i]
@@ -425,7 +443,7 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
         w_fn = None
         if clamp:
             r_pt = v3_sub(p_w, com_w[b])
-            inv_m = f["inv_mass"][b]
+            inv_m = one / mass[b] if dr else f["inv_mass"][b]
 
             def w_fn(d, _r=r_pt, _I=I_inv_w[b], _im=inv_m):
                 rxd = v3_cross(_r, d)
@@ -506,15 +524,19 @@ def substep(c: AntConsts, qpos: Sequence, qvel: Sequence, tau_act: Sequence,
         Bw = m33_mv(B, w)
         return (*top, *v3_add((-Bw[0], -Bw[1], -Bw[2]), v3_scale(p, m)))
 
-    # CRBA composite inertias (composite masses come summed from the table)
+    # CRBA composite inertias (composite masses come summed from the table,
+    # or under DR summed per lane, children into parents from the last body)
     Ic = list(I_sp)
+    comp_mass = list(mass) if dr else f["comp_mass"]
     for b in range(nb - 1, 0, -1):
         A1, B1, _ = Ic[c.parent[b]]
         A2, B2, _ = Ic[b]
         Ic[c.parent[b]] = (tuple(tuple(A1[i][j] + A2[i][j] for j in range(3)) for i in range(3)),
                            tuple(tuple(B1[i][j] + B2[i][j] for j in range(3)) for i in range(3)),
                            None)
-    Ic = [(A, B, f["comp_mass"][b]) for b, (A, B, _) in enumerate(Ic)]
+        if dr:
+            comp_mass[c.parent[b]] = comp_mass[c.parent[b]] + comp_mass[b]
+    Ic = [(A, B, comp_mass[b]) for b, (A, B, _) in enumerate(Ic)]
     Mrows = [[None] * NV for _ in range(NV)]
     for j in range(NV):
         fI = I_mv(Ic[c.body_of_dof[j]], phi[j])

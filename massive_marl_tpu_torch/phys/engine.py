@@ -13,7 +13,10 @@ wrenches and the semi-implicit integrator.  The array-path scene step
 the fused path's ant substep is the kernel in ops/.
 
 Every function batches over leading dimensions: qpos [..., nq], qvel
-[..., nv], contact points [..., P, 3].  Per-body and per-dof quantities are
+[..., nv], contact points [..., P, 3].  The System's mass, armature, damping
+and jnt_range may carry the same leading dimensions (one set per
+articulation, from domain randomization, phys/dr.DrSample.apply); with the
+nominal unbatched System the arithmetic is the same.  Per-body and per-dof quantities are
 Python lists of tensors over the static tree, as in the reference.  Spatial
 vectors ([angular; linear]) are in the world frame about the articulation's
 base position.  `points_world` returns positions and velocities only (the
@@ -137,7 +140,7 @@ def forward_dynamics(sys: System, fk: FK, qvel: torch.Tensor, tau_hinge: torch.T
     I_sp = []
     for b in range(sys.nb):
         I_w = mm(mm(fk.R[b], sys.inertia[b]), fk.R[b].transpose(-1, -2))
-        I_sp.append(spatial_inertia(sys.mass[b], fk.com_w[b] - fk.base, I_w))
+        I_sp.append(spatial_inertia(sys.mass[..., b], fk.com_w[b] - fk.base, I_w))
 
     Ic = list(I_sp)
     for b in range(sys.nb - 1, 0, -1):
@@ -150,7 +153,7 @@ def forward_dynamics(sys: System, fk: FK, qvel: torch.Tensor, tau_hinge: torch.T
             Mrows[i][j] = mij
             Mrows[j][i] = mij
     for j in range(6, sys.nv):
-        Mrows[j][j] = Mrows[j][j] + sys.armature[j - 6]
+        Mrows[j][j] = Mrows[j][j] + sys.armature[..., j - 6]
     if imp_damping is not None:
         for j in range(sys.nj):
             Mrows[6 + j][6 + j] = Mrows[6 + j][6 + j] + h * imp_damping[..., j]
@@ -167,7 +170,7 @@ def forward_dynamics(sys: System, fk: FK, qvel: torch.Tensor, tau_hinge: torch.T
 
     fs = []
     for b in range(sys.nb):
-        f_grav = point_force_spatial(fk.com_w[b], sys.mass[b] * gravity, fk.base)
+        f_grav = point_force_spatial(fk.com_w[b], sys.mass[..., b, None] * gravity, fk.base)
         fs.append(mv(I_sp[b], avp[b]) + force_cross(fk.v[b], mv(I_sp[b], fk.v[b]))
                   - f_grav - f_ext[b])
     for b in range(sys.nb - 1, 0, -1):
@@ -240,8 +243,8 @@ def joint_limit_torque(sys: System, qpos: torch.Tensor, qvel: torch.Tensor,
     if sys.nj == 0:
         return qpos.new_zeros(qpos.shape[:-1] + (0,))
     q, qd = qpos[..., 7:], qvel[..., 6:]
-    below = torch.clamp(sys.jnt_range[:, 0] - q, min=0.0)
-    above = torch.clamp(q - sys.jnt_range[:, 1], min=0.0)
+    below = torch.clamp(sys.jnt_range[..., 0] - q, min=0.0)
+    above = torch.clamp(q - sys.jnt_range[..., 1], min=0.0)
     viol = (below > 0) | (above > 0)
     return k * (below - above) - torch.where(viol, damp * qd, torch.zeros_like(qd))
 
@@ -254,8 +257,8 @@ def joint_limit_spring(sys_or_range, qpos: torch.Tensor, k: float = LIMIT_K,
     joint's own damping) and imp_stiffness."""
     jnt_range = getattr(sys_or_range, "jnt_range", sys_or_range)
     q = qpos[..., 7:]
-    below = torch.clamp(jnt_range[:, 0] - q, min=0.0)
-    above = torch.clamp(q - jnt_range[:, 1], min=0.0)
+    below = torch.clamp(jnt_range[..., 0] - q, min=0.0)
+    above = torch.clamp(q - jnt_range[..., 1], min=0.0)
     viol = (below > 0) | (above > 0)
     zero = torch.zeros_like(q)
     return (k * (below - above), torch.where(viol, zero + damp, zero),
@@ -352,10 +355,10 @@ def point_inertia(sys: System, fk: FK, p_w: torch.Tensor) -> PointInertia:
         k = e - s
         I_b = sys.inertia[b]
         if b > 0 and sys.nj > 0:
-            I_b = I_b + sys.armature[b - 1] * eye3
+            I_b = I_b + sys.armature[..., b - 1, None, None] * eye3
         I_inv_w = mm(mm(fk.R[b], _inv3x3_sym(I_b)), fk.R[b].transpose(-1, -2))
         lead = p_w.shape[:-2]
-        inv_m.append((1.0 / sys.mass[b]).expand(lead + (k,)))
+        inv_m.append((1.0 / sys.mass[..., b, None]).expand(lead + (k,)))
         inv_I.append(I_inv_w[..., None, :, :].expand(lead + (k, 3, 3)))
         r.append(p_w[..., s:e, :] - fk.com_w[b][..., None, :])
     return PointInertia(inv_mass=torch.cat(inv_m, dim=-1),

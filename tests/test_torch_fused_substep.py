@@ -1,13 +1,14 @@
-"""The substep kernels' wrappers (B1, and B6 on B1's legacy branch) and
-their device rule.
+"""The substep kernels' wrappers (B1 with and without its DR operand, and B6
+on B1's legacy branch) and their device rule.
 
 CPU tests: a CPU tensor takes the plain version and never touches the
 launch counters; the kernel wrappers refuse CPU tensors; entry points raise
 when CUDA is absent and the caller did not ask for the CPU; a legacy table
 (ContactParams(beta=None)) bakes without the box's inverse inertia.
 
-Tests marked `cuda` hold B1 (both branches) and B6 against their plain
-versions on the card and skip without one.  They import nothing of JAX, so on the GPU host they
+Tests marked `cuda` hold B1 (both branches, with and without the DR
+operand) and B6 against their plain versions on the card and skip without
+one.  They import nothing of JAX, so on the GPU host they
 run without the repository's JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fused_substep.py -m cuda
 """
@@ -134,6 +135,40 @@ def test_cuda_table_offsets_match_python_layout():
     assert list(py)[-4:] == point_fields and py["O_POINT_LOCAL"] == cu["FIXED_LEN"]
 
 
+def test_cuda_dr_offsets_match_python_layout():
+    """Each D_<FIELD> offset in csrc/substep.cu equals the position of the
+    field in fused_substep.DR_LAYOUT, and DR_LEN its total."""
+    src = (pathlib.Path(fs.__file__).parent / "csrc" / "substep.cu").read_text()
+    cu = {"NB": sp.NB, "NJ": sp.NJ}
+    for name, expr in re.findall(r"constexpr int (D_\w+|DR_LEN) = ([^;]+);", src):
+        cu[name] = eval(expr, {}, dict(cu))
+    off, py = 0, {}
+    for name, n in fs.DR_LAYOUT:
+        py["D_" + name.upper()] = off
+        off += n
+    py["DR_LEN"] = off
+    assert {k: cu[k] for k in py} == py and off == fs.DR_LEN == 41
+
+
+def _dr_operand(env, E, seed, device, armature=True):
+    """A [41, E*10] DR operand from cfg/TenAnt.yaml's ranges (mass, damping
+    and, with armature, the armature scaled by U[0.5, 1.5]; the limits
+    moved by N(0, 0.01))."""
+    from massive_marl_tpu_torch.phys import dr
+    spec = {"rigid_body_properties": {"mass": {"range": [0.5, 1.5]}},
+            "dof_properties": {"damping": {"range": [0.5, 1.5]},
+                               "stiffness": {"range": [0.5, 1.5], "maps_to": "armature"},
+                               "lower": {"range": [0, 0.01], "operation": "additive",
+                                         "distribution": "gaussian"},
+                               "upper": {"range": [0, 0.01], "operation": "additive",
+                                         "distribution": "gaussian"}}}
+    if not armature:
+        del spec["dof_properties"]["stiffness"]
+    g = torch.Generator().manual_seed(seed)
+    d = dr.sample_dr(env.spec.ant_sys.to("cpu"), spec, (E, 10), g)
+    return fs.pack_dr(d).to(device)
+
+
 def _assert_close_masked(got, ref, names, tol):
     """Same non-finite mask; the finite values within (rtol, atol)."""
     for name, g, r, (rtol, atol) in zip(names, got, ref, tol):
@@ -164,6 +199,50 @@ def test_kernel_matches_plain_on_card(cuda, has_box, legacy):
         (before[0] + 1, before[1] + int(legacy))
     ref = fs.substep_plain(c, 10, *ops)
     _assert_close_masked(got, ref, ["qpos", "qvel", "wrench", "sensors"], TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("armature", [False, True])
+@pytest.mark.parametrize("legacy", [False, True])
+@pytest.mark.parametrize("has_box", [True, False])
+def test_dr_kernel_matches_plain_on_card(cuda, has_box, legacy, armature):
+    """B1's DR instantiation at E = 24 (B = 240, a ragged last block): the
+    same bits as its plain version, held at the tolerance of the other B1
+    branches."""
+    env = TenAntEnv(device=cuda)
+    spec = env.spec if has_box else env.spec._replace(box_sys=None, box_half_extents=None)
+    if legacy:
+        spec = spec._replace(contact=spec.contact._replace(beta=None))
+    c = fs.scene_consts(spec)
+    ops = _states(env, 24, 1, cuda)
+    dr = _dr_operand(env, 24, 2, cuda, armature)
+    before = (fs.substep_kernel.launches, fs.substep_kernel.legacy_launches,
+              fs.substep_kernel.dr_launches)
+    got = fs.substep_kernel(c, 10, *ops, dr=dr)
+    torch.cuda.synchronize()
+    assert (fs.substep_kernel.launches, fs.substep_kernel.legacy_launches,
+            fs.substep_kernel.dr_launches) == (before[0] + 1, before[1] + int(legacy),
+                                               before[2] + 1)
+    ref = fs.substep_plain(c, 10, *ops, dr=dr)
+    _assert_close_masked(got, ref, ["qpos", "qvel", "wrench", "sensors"], TOL)
+    nominal = fs.substep_kernel(c, 10, *ops)
+    assert not torch.equal(nominal[1], got[1])
+
+
+@pytest.mark.cuda
+def test_dr_kernel_rejects_bad_operands(cuda):
+    env = TenAntEnv(device=cuda)
+    c = env.substep_consts
+    ops = _states(env, 4, 2, cuda)
+    dr = _dr_operand(env, 4, 3, cuda)
+    before = fs.substep_kernel.launches
+    with pytest.raises(ValueError, match="dr"):
+        fs.substep_kernel(c, 10, *ops, dr=dr[:-1].contiguous())
+    with pytest.raises(ValueError, match="dr"):
+        fs.substep_kernel(c, 10, *ops, dr=dr.t().contiguous().t())
+    with pytest.raises(ValueError, match="dr"):
+        fs.substep_kernel(c, 10, *ops, dr=dr.cpu())
+    assert fs.substep_kernel.launches == before
 
 
 @pytest.mark.cuda

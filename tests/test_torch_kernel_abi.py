@@ -1,7 +1,8 @@
-"""The ctypes signature tables of the fused MLP kernels against their C ABI.
+"""The ctypes signature tables of the CUDA kernels against their C ABI.
 
 ctypes does not read a library's declarations: an argument list in
-`fused_mlp_lib.signatures` / `fused_tower_lib.signatures` that differs from
+`fused_mlp_lib.signatures` / `fused_tower_lib.signatures` /
+`substep_kernel.signatures` (B1, with its DR operand, and B6) that differs from
 the `extern "C"` declaration in csrc/ passes arguments of the wrong width
 (a pointer cut to 32 bits, an int read as a pointer) without any error on
 the card.  These tests parse the declarations in the sources and hold each
@@ -16,9 +17,10 @@ import re
 import pytest
 
 from massive_marl_tpu_torch.ops import fused_mlp as fm
+from massive_marl_tpu_torch.ops import fused_substep as fs
 
 CSRC = os.path.join(os.path.dirname(fm.__file__), "csrc")
-LIBS = (fm.fused_mlp_lib, fm.fused_tower_lib)
+LIBS = (fm.fused_mlp_lib, fm.fused_tower_lib, fs.substep_kernel)
 DECL = re.compile(r'extern\s+"C"\s+([\w ]+?)\s+(\w+)\s*\(([^)]*)\)', re.S)
 KINDS = {ctypes.c_int: "int", ctypes.c_longlong: "long long", ctypes.c_void_p: "pointer",
          ctypes.POINTER(ctypes.c_void_p): "pointer array"}
