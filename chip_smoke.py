@@ -36,16 +36,19 @@ Phases; any failure raises and the script exits non-zero:
      the stacked schedule's N = 10 agents and the sequential schedule's
      N = 1: every output, with tolerances, and B3 twice for the same bits;
      each kernel's time beside its bound and its plain version's time; as
-     notes, bf16 torch.bmm of B2's product and of B3's two products; at
-     the main shape (hidden, N = 1) B3's device time per pass (row pass, dW
-     pass, reductions) from a short torch.profiler window;
+     notes, bf16 torch.bmm of B2's product and of B3's two products, and
+     the bytes of W that B2 reads from L2 per call (once per cluster and
+     work item); at the main shape (hidden, N = 1) B2's and B3's host time
+     per call and B3's device time per pass (row pass, dW pass,
+     reductions) from a short torch.profiler window;
   4b. hold B4/B5 against their plain versions at the update's two tower
      shapes (actor: Din 128 -> 512, critic: Din 512 with the share obs read
      by every agent; 3 layers), N = 1 and N = 10, B = 32,768, dx both ways;
      B5 twice for the same bits; each kernel's time beside its bound and
-     its plain version's, and three chained B2 (B3) launches as a note; at
-     the main shape (critic, N = 1) B5's device time per pass and its nine
-     products as bf16 torch.bmm (a note);
+     its plain version's, and three chained B2 (B3) launches as a note, and
+     the bytes of W that B4 reads from L2 per call; at the main shape
+     (critic, N = 1) B4's and B5's host time per call, B5's device time per
+     pass and its nine products as bf16 torch.bmm (a note);
   5. TenAnt + PPO at full width (E=4096, hidden 1024-1024-512, nsteps 8,
      5 epochs x 4 minibatches): 1 warm-up iteration through PPO.run and 3
      timed iterations through PPO.rollout_phase / update_phase;
@@ -87,7 +90,9 @@ Phases; any failure raises and the script exits non-zero:
      one OneAnt PPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1
      iteration under torch.profiler: device time by kernel group, the
      device's busy share (full lists in build/), and for both PPO runs a
-     host-clock breakdown of one rollout step into its parts.
+     host-clock breakdown of one rollout step into its parts; it raises if
+     B2's group (MAPPO, HATRPO) or B4's (FUSED_TOWER=1) shows no device time
+     in an iteration that launched it.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -673,6 +678,17 @@ def mlp_bound(kind, N, Din, H, shared):
         (bytes_ms, "bytes", nbytes, mm)
 
 
+def fwd_w_l2_bytes(fm, N, Din, H, L):
+    """Bytes of W that B2 (L = 1) or B4 reads from L2 in one call at
+    [N, MLP_B] rows, from the design: a work item is one cluster's 64-row
+    blocks of one agent, and each W tile is read once per item and
+    multicast to the cluster's blocks."""
+    cluster = fm.fused_mlp_lib.load().mlp_fwd_cluster_blocks()
+    blocks = -(-MLP_B // 64)
+    items = N * -(-blocks // cluster)
+    return items * (Din * H + (L - 1) * H * H) * 2
+
+
 def check_mlp(fm, d, label):
     """B2 and B3 against their plain versions on the same operands (B3 on
     the plain version's residual a); returns the worst absolute error of
@@ -748,7 +764,12 @@ def mlp_phase(fm, dev):
                                                    torch.bmm(xt.transpose(1, 2), dh16)), 20)
             print(f"  {label:22s} note: B3's two products dh16 @ w^T and xt^T @ dh16 as bf16 "
                   f"torch.bmm {row['bwd_bmm']:.4f} ms (a yardstick; no one call computes B3)")
+            print(f"  {label:22s} B2 reads {fwd_w_l2_bytes(fm, N, din, h, 1) / 1e6:.1f} MB of W "
+                  f"from L2 ({N * din * h * 2 / 1e6:.2f} MB of W per agent set, once per cluster and "
+                  f"work item)")
             if N == 1 and name == "hidden":
+                print(f"  {label:22s} B2 host {host_ms(lambda: mlp_fwd(fm, d)):.4f} ms per call "
+                      f"(enqueue: checks, two output allocations, 4 cached tensor maps, 1 launch)")
                 row["split"] = pass_split(lambda: mlp_bwd(fm, d, a))
                 print(f"  {label:22s} B3 by pass (profiler, per call): {fmt_split(row['split'])}; "
                       f"host {host_ms(lambda: mlp_bwd(fm, d, a)):.4f} ms per call (enqueue: checks, "
@@ -902,7 +923,11 @@ def tower_phase(fm, dev):
             print(f"  {label:22s} note: three chained B2 {row['chain_fwd']:.4f} ms, "
                   f"three chained B3 {row['chain_bwd']:.4f} ms (no one PyTorch call computes "
                   f"the tower)")
+            print(f"  {label:22s} B4 reads {fwd_w_l2_bytes(fm, N, din, TOWER_H, TOWER_L) / 1e6:.1f} "
+                  f"MB of W from L2 (once per cluster and work item)")
             if N == 1 and name == "critic tower":
+                print(f"  {label:22s} B4 host {host_ms(lambda: fm.tower_fwd_kernel(*args)):.4f} ms per "
+                      f"call (enqueue: checks, one output allocation, 5 cached tensor maps, 1 launch)")
                 row["split"] = pass_split(lambda: fm.tower_bwd_kernel(d["dy"], *args))
                 print(f"  {label:22s} B5 by pass (profiler, per call): {fmt_split(row['split'])}; "
                       f"host {host_ms(lambda: fm.tower_bwd_kernel(d['dy'], *args)):.4f} ms per call "
@@ -938,12 +963,12 @@ def timed_iteration(trainer):
     return {k: float(v) for k, v in m.items()}, t1 - t0, t2 - t1
 
 
-# device kernels grouped by what issues them (names as the profiler reports them)
-# (first match wins: the tower's names contain B2's and B3's)
+# device kernels grouped by what issues them (names as the profiler reports
+# them; kernel_group takes the first group with a key in the name)
 KERNEL_GROUPS = (("B1 substep kernel", ("substep_kernel",)),
-                 ("B4 mlp_tower fwd", ("tower_fwd_kernel",)),
+                 ("B4 mlp_tower fwd", ("tower_fwd_wgmma",)),
                  ("B5 mlp_tower bwd row pass", ("tower_bwd_wgmma",)),
-                 ("B2 dense_elu_ln fwd", ("fwd_kernel",)),
+                 ("B2 dense_elu_ln fwd", ("dense_fwd_wgmma",)),
                  ("B3 dense_elu_ln bwd row pass", ("ln_bwd_rows_wgmma",)),
                  ("B3/B5 dW pass", ("dw_wgmma", "reduce_dw_kernel")),
                  ("B3/B5 partial-sum reductions", ("colsum_partial_kernel", "colsum_final_kernel")),
@@ -955,13 +980,22 @@ KERNEL_GROUPS = (("B1 substep kernel", ("substep_kernel",)),
                  ("other elementwise", ("elementwise", "cross_kernel", "index")))
 
 
-def profile_iteration(trainer, path, label):
+def kernel_group(name: str) -> str:
+    """The group of a device kernel's name: the first of KERNEL_GROUPS with a
+    key in it, else "other"."""
+    return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
+
+
+def profile_iteration(trainer, path, label, require=()):
     """One training iteration under torch.profiler: device time by kernel
-    group and name and the device's busy share; the full list goes to path."""
+    group and name and the device's busy share; the full list goes to path.
+    require: (group, kernel wrapper) pairs; raises if a wrapper launched in
+    the iteration and its group shows no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = [k.launches for _, k in require]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, roll_s, upd_s = timed_iteration(trainer)
     by_name, n_kernels = {}, 0
@@ -971,7 +1005,7 @@ def profile_iteration(trainer, path, label):
             n_kernels += 1
     groups = {}
     for name, ms in by_name.items():
-        g = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
+        g = kernel_group(name)
         groups[g] = groups.get(g, 0.0) + ms
     busy_ms = sum(by_name.values())
     wall_ms = (roll_s + upd_s) * 1e3
@@ -986,6 +1020,10 @@ def profile_iteration(trainer, path, label):
           f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernel launches -> {path}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:10.3f} ms  {g}")
+    for (g, k), n0 in zip(require, before):
+        if k.launches > n0 and not groups.get(g):
+            raise AssertionError(f"profile {label}: {k.launches - n0} launches of the {g} "
+                                 "kernel but no device time in its group")
 
 
 def rollout_step_parts(ppo):
@@ -1365,14 +1403,15 @@ def main() -> int:
     profile_iteration(ppo_one, os.path.join(root, "build", "profile_one_ant_iteration.txt"),
                       "OneAnt PPO")
     del ppo_arr, ppo_one
+    b2_req = (("B2 dense_elu_ln fwd", fm.fwd_kernel),)
     profile_iteration(runner, os.path.join(root, "build", "profile_mappo_iteration.txt"),
-                      "MAPPO")
+                      "MAPPO", b2_req)
     profile_iteration(trpo, os.path.join(root, "build", "profile_hatrpo_iteration.txt"),
-                      "HATRPO")
+                      "HATRPO", b2_req)
     os.environ["FUSED_TOWER"] = "1"
     try:
         profile_iteration(tower, os.path.join(root, "build", "profile_mappo_tower_iteration.txt"),
-                          "MAPPO FUSED_TOWER=1")
+                          "MAPPO FUSED_TOWER=1", (("B4 mlp_tower fwd", fm.tower_fwd_kernel),))
     finally:
         os.environ.pop("FUSED_TOWER")
 

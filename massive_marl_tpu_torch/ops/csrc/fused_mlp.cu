@@ -1,6 +1,6 @@
 // Fused Dense -> ELU -> LayerNorm block, forward (B2) and backward (B3), for
-// agent-stacked operands (CUDA C++ for sm_90a: B2 on wmma; B3 on wgmma with
-// TMA-fed rings of shared-memory tiles).
+// agent-stacked operands: CUDA C++ for sm_90a, both on wgmma fed by TMA
+// through mbarrier rings of shared-memory tiles.
 //
 // Replaces the TPU kernels massive_marl_tpu/ops/fused_mlp.py::_fwd_kernel
 // (B2) and ::_bwd_kernel (B3).  The plain PyTorch versions with the same
@@ -17,11 +17,27 @@
 //             dh16; db = sum dh (f32 dh); dgamma = sum dy*yhat; dbeta = sum
 //             dy; dg0 = sum (dh16 @ w^T) * x; db0 = sum dh16 @ w^T.
 //
-// B2 (forward).  A block owns BM = 64 whole rows, so the LayerNorm
-// statistics stay on chip: the product is staged through shared memory in K
-// tiles of 32 on wmma and the bias/ELU/LayerNorm epilogue reads the f32 tile
-// back from shared memory (64 x 512 f32 = 128 KB at H = 512).  Bound by
-// bytes at the main path's shapes; not pipelined (a later PR's work).
+// B2 (forward, dense_fwd_wgmma_kernel: fwd_body of fused_mlp_common.cuh
+// with one layer).  What bounds it on this card: bytes.  At hidden
+// 512->512, N = 1 (B = 32,768) it must move 101 MB (x, y and a, W once) and
+// do 17.2 GFLOP, 0.030 ms against 0.017 ms.  So the design keeps every
+// load in flight under the math and reads W from L2 as rarely as it can:
+//   * a persistent grid of 2-block clusters walks work items (two 64-row
+//     blocks of one agent), so a producer warp keeps a ring of K stages in
+//     flight across items: the next item's x and W land while this item's
+//     epilogue and stores run;
+//   * x streams through the ring with W (no Din limit); the consumers apply
+//     the input affine in place, one 16-byte chunk each, before wgmma reads
+//     the tile;
+//   * each W tile is loaded from L2 once per cluster and multicast to both
+//     blocks (a stage is refilled when the four consumer warpgroups of the
+//     cluster have released it);
+//   * two consumer warpgroups hold the 64 x H f32 product in registers; the
+//     bias/ELU/LayerNorm epilogue works from them, with the row statistics
+//     across the warpgroups through a 512-byte buffer, so no f32 tile
+//     passes through shared memory;
+//   * a and y are staged as swizzled bf16 in shared memory and leave by TMA
+//     stores, which run on under the next item's products.
 //
 // B3 (backward).  The TPU kernel walks the row blocks of one agent in order
 // and accumulates the column sums and dW in place across grid steps.
@@ -35,25 +51,24 @@
 //      with 8-byte loads in the column order of torch's own row sums (so
 //      the statistics, and the roundings of dh16, match the plain
 //      version's; see torch_lane_sum), writing dh16 to shared memory
-//      (128-byte swizzle, the wgmma A operand) and to the dh scratch; then per chunk dx_raw = dh16
-//      @ w^T on wgmma with the accumulator in registers, dx = bf16(dx_raw *
-//      g0), and the per-block sums of dx_raw * x and dx_raw from the
-//      accumulator (quads by shuffles, warps through shared memory, fixed
-//      order).  Persistence, rather than two blocks per SM, hides the next
-//      item's first W tiles behind this item's epilogue: dh16 of 128 rows
-//      (128 KB at H = 512) leaves no room for a second block.
+//      (128-byte swizzle, the wgmma A operand) and to the dh scratch; then
+//      per chunk dx_raw = dh16 @ w^T on wgmma with the accumulator in
+//      registers, dx = bf16(dx_raw * g0), and the per-block sums of dx_raw
+//      * x and dx_raw from the accumulator (quads by shuffles, warps through
+//      shared memory, fixed order).  Persistence, rather than two blocks per
+//      SM, hides the next item's first W tiles behind this item's epilogue:
+//      dh16 of 128 rows (128 KB at H = 512) leaves no room for a second
+//      block.
 //   2. The dW pass (fused_mlp_common.cuh, shared with B5): dW = xt^T @ dh16
 //      on wgmma from a six-stage TMA ring, split over rows to fill the card.
 //   3. colsum_*: the per-block sums reduced over the card in two fixed-order
 //      levels.
-//
-// What bounds it on this card: at hidden 512->512, N = 1 (B = 32,768) B3 is
-// balanced, 0.0413 ms by operations (two products, 34.4 GFLOP, and the
-// elementwise work) and ~0.0405 ms by bytes.  Both products now run on
-// wgmma fed by TMA, and the dW pass runs near the L2's rate; what still
-// holds the row pass back is its own epilogue work: the LayerNorm phase
-// walks 16 rows per warp in sequence, the column sums take shuffles, and
-// one block per SM overlaps none of that with the products.
+// What bounds it on this card: at hidden 512->512, N = 1 B3 is balanced,
+// 0.0413 ms by operations (two products, 34.4 GFLOP, and the elementwise
+// work) and ~0.0405 ms by bytes.  What still holds the row pass back is its
+// own epilogue work: the LayerNorm phase walks 16 rows per warp in
+// sequence, the column sums take shuffles, and one block per SM overlaps
+// none of that with the products.
 
 #include "fused_mlp_common.cuh"
 
@@ -64,112 +79,11 @@ namespace {
 // ---------------------------------------------------------------------------
 
 template <int HK>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(int B, int Din, long long sx, const bf16* __restrict__ x,
-           const bf16* __restrict__ w, const float* __restrict__ bias,
-           const float* __restrict__ gamma, const float* __restrict__ beta,
-           const float* __restrict__ g0, const float* __restrict__ b0,
-           bf16* __restrict__ y, bf16* __restrict__ a) {
-  constexpr int H = 128 * HK;
-  constexpr int LDA = KT + 8, LDB = H + 8, LDC = H + 4;
-  constexpr int FN = H / 4 / 16;  // accumulator fragments across a warp's columns
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [BM][LDA] xt tile
-  bf16* Bs = As + BM * LDA;                  // [KT][LDB] w tile
-  float* Cs = reinterpret_cast<float*>(smem);  // [BM][LDC] after the product
-
-  const int n = blockIdx.y, row0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp >> 2, wc = warp & 3;
-  const bf16* xn = x + n * sx;
-  const bf16* wn = w + (size_t)n * Din * H;
-  const float* g0n = g0 + (size_t)n * Din;
-  const float* b0n = b0 + (size_t)n * Din;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < Din; k0 += KT) {
-    {  // xt tile: 64 rows x 32 columns, 8 values per thread
-      const int r = tid >> 2, c = (tid & 3) * 8;
-      const int gr = row0 + r;
-      *reinterpret_cast<uint4*>(As + r * LDA + c) =
-          load_xt8(xn + (size_t)(gr < B ? gr : 0) * Din, g0n, b0n, k0 + c, gr < B);
-    }
-    for (int idx = tid; idx < KT * H / 8; idx += THREADS) {
-      const int r = idx / (H / 8), c = (idx % (H / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-          *reinterpret_cast<const uint4*>(wn + (size_t)(k0 + r) * H + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wr * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Bs + kk * LDB + wc * (H / 4) + j * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * LDC + wc * (H / 4) + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // epilogue: one warp per row, H / 32 columns per lane
-  const float* bn = bias + (size_t)n * H;
-  const float* gn = gamma + (size_t)n * H;
-  const float* ben = beta + (size_t)n * H;
-  for (int rr = 0; rr < BM / 8; ++rr) {
-    const int r = warp * (BM / 8) + rr, gr = row0 + r;
-    if (gr >= B) break;
-    float v[H / 32];
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < H / 32; ++j) {
-      const int c = lane + 32 * j;
-      const float h = Cs[r * LDC + c] + bn[c];
-      v[j] = h > 0.f ? h : expf(h) - 1.f;
-      s += v[j];
-    }
-    const float mu = warp_sum(s) / H;
-    float q = 0.f;
-#pragma unroll
-    for (int j = 0; j < H / 32; ++j) {
-      const float d = v[j] - mu;
-      q += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(q) / H + EPS);
-    bf16* yr = y + ((size_t)n * B + gr) * H;
-    bf16* ar = a + ((size_t)n * B + gr) * H;
-#pragma unroll
-    for (int j = 0; j < H / 32; ++j) {
-      const int c = lane + 32 * j;
-      yr[c] = __float2bfloat16((v[j] - mu) * inv * gn[c] + ben[c]);
-      ar[c] = __float2bfloat16(v[j]);
-    }
-  }
-}
-
-template <int HK>
-size_t fwd_smem() {
-  constexpr int H = 128 * HK;
-  const size_t tiles = (size_t)BM * (KT + 8) * 2 + (size_t)KT * (H + 8) * 2;
-  const size_t c = (size_t)BM * (H + 4) * 4;
-  return tiles > c ? tiles : c;
+__global__ void __launch_bounds__(RP_THREADS, 1)
+dense_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, int N, int B, int Din, int x_agents,
+                       const float* __restrict__ g0, const float* __restrict__ b0,
+                       const __grid_constant__ Layers p) {
+  fwd_body<HK>(maps, N, B, Din, 1, x_agents, true, g0, b0, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -527,14 +441,29 @@ template <int HK>
 int launch_fwd(int N, int B, int Din, long long sx, const void* x, const void* w,
                const void* b, const void* g, const void* be, const void* g0, const void* b0,
                void* y, void* a, cudaStream_t st) {
-  const size_t smem = fwd_smem<HK>();
-  const int err = allow_smem(fwd_kernel<HK>, smem);
+  constexpr int H = 128 * HK;
+  static int max_clusters = 0;
+  const int xa = sx == 0 ? 1 : N;
+  FwdMaps maps;
+  memset(&maps, 0, sizeof maps);
+  int err = make_map(&maps.x, x, Din, B, xa, (uint64_t)Din * 2, (uint64_t)B * Din * 2, FK, BM,
+                     CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err == 0)
+    err = make_map(&maps.w[0], w, H, Din, N, (uint64_t)H * 2, (uint64_t)Din * H * 2, 64, FK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = make_map(&maps.y, y, H, B, N, (uint64_t)H * 2, (uint64_t)B * H * 2, 64, BM,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = make_map(&maps.a, a, H, B, N, (uint64_t)H * 2, (uint64_t)B * H * 2, 64, BM,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  dim3 grid((B + BM - 1) / BM, N);
-  fwd_kernel<HK><<<grid, THREADS, smem, st>>>(
-      B, Din, sx, (const bf16*)x, (const bf16*)w, (const float*)b, (const float*)g,
-      (const float*)be, (const float*)g0, (const float*)b0, (bf16*)y, (bf16*)a);
-  return (int)cudaGetLastError();
+  Layers p = {};
+  p.b[0] = (const float*)b;
+  p.g[0] = (const float*)g;
+  p.be[0] = (const float*)be;
+  return launch_fwd_clusters(dense_fwd_wgmma_kernel<HK>, FwdSmem<HK>::TOTAL, &max_clusters, N, B,
+                             st, maps, N, B, Din, xa, (const float*)g0, (const float*)b0, p);
 }
 
 template <int HK>
@@ -577,6 +506,10 @@ extern "C" int dense_elu_ln_fwd(int N, int B, int Din, int H, long long sx, cons
     default: return launch_fwd<4>(N, B, Din, sx, x, w, b, g, be, g0, b0, y, a, st);
   }
 }
+
+// Blocks of a forward cluster: each W tile of B2 (and B4) is read from L2
+// once per cluster and work item of this many 64-row blocks.
+extern "C" int mlp_fwd_cluster_blocks() { return FWD_CL; }
 
 // Bytes of device scratch dense_elu_ln_bwd needs: dh16 [N,B,H] bf16, the
 // row pass's partial sums, the dW pass's partial tiles when it splits its

@@ -1,42 +1,46 @@
 // Pieces shared by the fused MLP kernels of fused_mlp.cu (B2/B3) and
-// fused_tower.cu (B4/B5): block constants, a warp sum, the bf16 input
-// affine, the Hopper building blocks of the backward kernels (mbarriers, a
-// ring of TMA-filled stages, wgmma on shared-memory descriptors), the
+// fused_tower.cu (B4/B5), all on Hopper's wgmma fed by TMA: block constants,
+// a warp sum, the bf16 input affine, the PTX building blocks (mbarriers,
+// thread-block clusters, a ring of TMA-filled stages, TMA stores, wgmma on
+// shared-memory descriptors), a cache of encoded tensor maps, the forward
+// of B2 and B4 (one product routine and one epilogue, fwd_body), the
 // backward's dW pass and the fixed-order reductions of partial sums.
 //
-// Shared-memory operand layouts.  Every wgmma operand of the backward
-// kernels is a swizzled tile as TMA writes it: rows of 128 bytes (64 bf16)
-// in atoms of 8 rows (1024 B), 16-byte chunk j of row r stored at chunk
-// j ^ (r % 8) (the 64-byte swizzle: rows of 64 B, chunk j ^ ((r / 2) % 4)).
+// Shared-memory operand layouts.  Every wgmma operand is a swizzled tile as
+// TMA writes it: rows of 128 bytes (64 bf16) in atoms of 8 rows (1024 B),
+// 16-byte chunk j of row r stored at chunk j ^ (r % 8) (the 64-byte
+// swizzle: rows of 64 B, chunk j ^ ((r / 2) % 4)).
 //   * K-major (K contiguous, as A = [M][K] row-major): a tile is
 //     [rows][64 k] per atom column; the descriptor's stride byte offset is
-//     the 1024 B between 8-row groups and a k16 step adds 32 B to the start;
+//     the 1024 B between 8-row groups and a k16 step adds 32 B to the start
+//     (64-byte swizzle: [rows][32 k], 8-row groups 512 B apart);
 //   * MN-major (M or N contiguous, as xt = [rows][Din] read as xt^T): a
 //     tile is [k rows][64 m] per box; 8-row k groups are 1024 B apart (the
 //     stride byte offset), 64-column boxes one box apart (the leading byte
 //     offset), and a k16 step adds 2048 B.
-// A tile written by the threads themselves (B3's dh16, B5's layer input)
-// uses the same swizzle, so wgmma reads both kinds alike.
+// A tile written by the threads themselves (B3's dh16, B4/B5's layer input,
+// the forward's output staging) uses the same swizzle, so wgmma and TMA read
+// both kinds alike.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace {
 
-using namespace nvcuda;  // wmma, in the forward kernels B2/B4
 typedef __nv_bfloat16 bf16;
 
 constexpr float EPS = 1e-6f;  // flax.linen.LayerNorm default epsilon
-constexpr int BM = 64;        // rows per block in B2/B4 and per warpgroup product
-constexpr int KT = 32;        // depth of a staged K tile in B2/B4
-constexpr int THREADS = 256;  // B2/B4: 8 warps, 2 along rows x 4 along columns
+constexpr int BM = 64;        // rows of a warpgroup product and of a forward work item
+constexpr int RED_THREADS = 256;  // the reduction kernels' blocks
 constexpr int WS_THREADS = 288;   // the dW pass: two consumer warpgroups + a producer warp
 constexpr int CONSUMERS = 256;    // threads of the two consumer warpgroups
-// B3's and B5's row passes: two consumer warpgroups + a producer warpgroup
+// B2/B4 and B3's and B5's row passes: two consumer warpgroups + a producer warpgroup
 // that hands its registers to them (setmaxnreg: 128 x 40 + 256 x 232 of the
 // SM's 65,536)
 constexpr int RP_THREADS = 384;
@@ -146,10 +150,39 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A tensor map of a bf16 array d0 x d1 x d2 (d0 contiguous; s1, s2 the byte
-// strides of dims 1 and 2) read in boxes b0 x b1 x 1.  Elements outside the
-// array read as zeros.  Returns 0 or a CUDA error code.
+// strides of dims 1 and 2) read or written in boxes b0 x b1 x 1.  Elements
+// outside the array read as zeros and are not written.  Returns 0 or a CUDA
+// error code.
+//
+// Encoded maps are cached by their whole geometry (base pointer, dims,
+// strides, box, swizzle): a map holds nothing else, so a hit is always the
+// map an encode would give, and the caching allocator makes the pointers of
+// a training loop repeat.  An encode costs the host microseconds a call.
+struct MapKey {
+  const void* base;
+  uint64_t d0, d1, d2, s1, s2;
+  uint32_t b0, b1;
+  int swizzle;
+};
+constexpr int MAP_CACHE = 128;
+
 int make_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
              uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+  static std::mutex mu;
+  static MapKey keys[MAP_CACHE];
+  static CUtensorMap maps[MAP_CACHE];
+  static int filled = 0, next = 0;
+  MapKey key;
+  memset(&key, 0, sizeof key);  // padding too: keys compare with memcmp
+  key.base = base;
+  key.d0 = d0, key.d1 = d1, key.d2 = d2, key.s1 = s1, key.s2 = s2;
+  key.b0 = b0, key.b1 = b1, key.swizzle = (int)swizzle;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < filled; ++i)
+    if (memcmp(&keys[i], &key, sizeof key) == 0) {
+      *map = maps[i];
+      return 0;
+    }
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {d0, d1, d2}, strides[2] = {s1, s2};
@@ -157,7 +190,12 @@ int make_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint6
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % MAP_CACHE;
+  filled = filled < MAP_CACHE ? filled + 1 : MAP_CACHE;
+  return 0;
 }
 
 // Box (c0, c1, c2) of `map` into shared memory at dst; completes bytes on bar.
@@ -175,6 +213,94 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// The same box multicast into the shared memory of every block of the
+// cluster in `mask`, at dst's offset there; completes bytes on each block's
+// barrier at bar's offset.
+__device__ __forceinline__ void tma_load_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            uint16_t mask, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory
+// at dst; completes bytes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared memory at src to box (c0, c1, c2) of `map` (elements outside the
+// array are not written), in the issuing thread's current bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---- thread-block clusters
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster (all lanes of a warp together).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::
+          : "memory");
+}
+// Arrives on the mbarrier at bar's offset in block `cta` of the cluster,
+// with the default release at the scope of this block: what it orders is
+// wgmma's reads of a ring stage, complete before the arrival, against the
+// TMA writes that refill the stage.  (A release at cluster scope waits out
+// this thread's memory traffic cluster-wide: it took two thirds of the
+// products' time.)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
 }
 
 // Register budgets of a warp-specialized block: every warp of a warpgroup
@@ -305,11 +431,12 @@ struct Ring {
 
 // Sets up a ring's barriers (one thread) before the role split: full[s]
 // waits for the producer's expect_tx arrival, empty[s] for one arrival per
-// consumer warpgroup.
-__device__ inline void ring_init(uint64_t* full, uint64_t* empty, int stages) {
+// consumer warpgroup of each of the `blocks` blocks that share the stage
+// (the cluster's, when its tiles are multicast).
+__device__ inline void ring_init(uint64_t* full, uint64_t* empty, int stages, int blocks = 1) {
   for (int s = 0; s < stages; ++s) {
     mbar_init(&full[s], 1);
-    mbar_init(&empty[s], 2);
+    mbar_init(&empty[s], 2 * blocks);
   }
 }
 
@@ -319,9 +446,18 @@ __device__ __forceinline__ void mbar_init_fence() {
 
 // Consumer side of one stage: after the warpgroup's wgmma group on the
 // stage before has finished (wait_group 1 once the current group is
-// committed), one thread of the warpgroup frees that earlier stage.
+// committed), one thread of the warpgroup frees that earlier stage.  Where
+// the stage's tiles are multicast to the CL blocks of a cluster, it is freed
+// in every block, since the next fill of it in any block lands in all.
+template <int CL = 1>
 __device__ __forceinline__ void release_stage(uint64_t* empty, bool elected) {
-  if (elected) mbar_arrive(empty);
+  if (!elected) return;
+  if (CL == 1) {
+    mbar_arrive(empty);
+  } else {
+#pragma unroll
+    for (int c = 0; c < CL; ++c) mbar_arrive_cluster(empty, c);
+  }
 }
 
 // Row reduction across the two consumer warpgroups: each thread holds
@@ -361,6 +497,421 @@ int allow_smem(K kernel, size_t bytes) {
   if (bytes > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+      n = 132;
+  }
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// The forward of B2 and B4: one product routine, one epilogue, one body
+// ---------------------------------------------------------------------------
+
+constexpr int MAXL = 8;                      // layers a tower may have
+constexpr int FK = 32;                       // K depth of a forward ring stage
+constexpr uint32_t FBOX = FK * 128;          // a W box: 64 columns x FK rows, 128-byte swizzle
+constexpr uint32_t XT_BYTES = BM * FK * 2;   // a streamed x tile: 64 rows x FK, 64-byte swizzle
+constexpr int FWD_CL = 2;                    // blocks of a forward cluster (W multicast to all)
+
+struct Layers {
+  const bf16* w[MAXL];
+  const float* b[MAXL];
+  const float* g[MAXL];
+  const float* be[MAXL];
+};
+
+// Tensor maps of the forward: x read in [64 rows][FK] boxes, W_l in [FK][64]
+// boxes, y and a written in [64 rows][64] boxes.
+struct FwdMaps {
+  CUtensorMap x, y, a, w[MAXL];
+};
+
+// Shared memory of a forward block at width H = 128 HK:
+//   act    [64 rows][H] bf16 in 128-byte-swizzled atoms of 64 columns: the
+//          input of layers 1 ... (the A operand), and the staging of a and
+//          y for their TMA stores;
+//   ring   STAGES stages of [x tile | W tile [FK][H] in H / 64 boxes | g0,
+//          b0 of the x tile's FK columns], each 1024-byte aligned (the x
+//          tile and g0/b0 are filled for layer 0 only);
+//   vec    the current layer's bias, LayerNorm scale and bias, [3][H] f32;
+//   stats  per-row sums of the two warpgroups, two alternating buffers;
+//   bars   full/empty per ring stage.
+template <int HK>
+struct FwdSmem {
+  static constexpr int H = 128 * HK;
+  static constexpr uint32_t W_BYTES = FK * H * 2;
+  static constexpr uint32_t GB = XT_BYTES + W_BYTES;
+  static constexpr uint32_t STAGE = (GB + 2 * FK * 4 + 1023) / 1024 * 1024;
+  static constexpr size_t RING = (size_t)BM * H * 2;
+  static constexpr size_t FIXED = RING + 3 * H * 4 + 2 * 2 * 64 * 4 + 2 * 8 * 8;
+  static constexpr int STAGES =
+      (SMEM_MAX - FIXED) / STAGE > 8 ? 8 : (int)((SMEM_MAX - FIXED) / STAGE);
+  static constexpr size_t VEC = RING + (size_t)STAGES * STAGE;
+  static constexpr size_t STATS = VEC + 3 * H * 4;
+  static constexpr size_t BARS = STATS + 2 * 2 * 64 * 4;
+  static constexpr size_t TOTAL = BARS + 2 * STAGES * 8;
+  static_assert(TOTAL <= SMEM_MAX && STAGES >= 3, "forward shared memory");
+};
+
+// One product of a 64-row block, run by both consumer warpgroups: acc =
+// A[64 x K] @ W over K in ring stages of FK, nb 64-column blocks per
+// warpgroup, the warpgroup's half of the stage's W boxes (at w_off; [FK][64]
+// MN-major) starting at box wg * nb.
+//   stream: A is the stage's x tile ([64 rows][FK] K-major, 64-byte
+//     swizzle), which the 256 consumer threads first turn into xt = bf16(x *
+//     g0 + b0) in place, one 16-byte chunk each, with g0 and b0 of its FK
+//     columns from the stage (at gb_off); then fence.proxy.async and a
+//     barrier over both warpgroups before wgmma reads it.
+//   else: A is `act`, resident ([64 rows][K] K-major in 128-byte-swizzled
+//     atoms of 64 columns).
+// One loop for both (a flag, not a template): two inlined loops on the same
+// accumulators made the compiler move them between the loops' registers.
+// CL: blocks of the cluster that share every stage (release_stage).
+template <int NBA, int CL>
+__device__ __forceinline__ void fwd_product(float (&acc)[NBA][32], int nb, uint32_t act, int K,
+                                            Ring& ring, uint32_t w_off, uint32_t gb_off, int wg,
+                                            bool elected, bool stream) {
+  // acc starts from zeros (the first wgmma ignores it, but reads it as an
+  // input): the values of the epilogue before are then dead after their
+  // last use there.  Left live into the next product, they spilled at H =
+  // 384 and 512 (B2, B4 and B5).  Every write completes before the first
+  // wgmma.fence: one the compiler moved past it would serialize the
+  // products.
+#pragma unroll
+  for (int j = 0; j < NBA; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  fence_acc(acc);
+  int prev = -1;
+  for (int ks = 0; ks < K / FK; ++ks) {
+    mbar_wait(&ring.full[ring.stage], ring.phase);  // only TMA wrote the stage: no proxy fence
+    unsigned char* buf = ring.buf();
+    if (stream) {
+      // thread t: physical chunk t % 4 of row t / 4, logical chunk (the
+      // columns 8 lc ... of the tile) t % 4 ^ (row / 2) % 4
+      const int t = threadIdx.x, r = t >> 2, pc = t & 3, lc = pc ^ ((r >> 1) & 3);
+      uint4* q = reinterpret_cast<uint4*>(buf + r * 64 + pc * 16);
+      const float* g0 = reinterpret_cast<const float*>(buf + gb_off) + lc * 8;
+      const float* b0 = g0 + FK;
+      uint4 raw = *q;
+      bf16* v = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(__bfloat162float(v[j]) * g0[j] + b0[j]);
+      *q = raw;
+      fence_async_smem();
+      consumers_sync();
+    }
+    const uint32_t xa = smem_u32(buf), b = xa + w_off;
+    // the A descriptors of the stage's k16 steps, chosen before the first
+    // wgmma: a choice between two wgmmas made ptxas fence them apart
+    uint64_t da[FK / 16];
+#pragma unroll
+    for (int k = 0; k < FK / 16; ++k) {
+      const int s = ks * 2 + k;  // k16 step: atom s / 4 of act, 32 B per step inside it
+      da[k] = stream ? make_desc_sw(xa + k * 32, 16, 512, 2)
+                     : make_desc_sw(act + (s >> 2) * (BM * 128) + (s & 3) * 32, 16, 1024, 1);
+    }
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < FK / 16; ++k)  // 64-column boxes FBOX apart, 8-row k groups 1024 B apart
+      wgmma_k16<NBA, 0, 1>(acc, nb, da[k],
+                           make_desc_sw(b + wg * nb * FBOX + k * 2048, FBOX, 1024, 1), FBOX >> 4,
+                           (ks | k) != 0);
+    wg_commit();
+    wg_wait<1>();  // the step before is done: its stage may be refilled
+    if (prev >= 0) release_stage<CL>(&ring.empty[prev], elected);
+    prev = ring.stage;
+    ring.advance();
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  release_stage<CL>(&ring.empty[prev], elected);
+}
+
+// The bf16 pair at (row, col) of a [64 rows][width] tile in 128-byte-swizzled
+// atoms of 64 columns: atom col / 64, 16-byte chunk (col % 64) / 8 swizzled
+// with row % 8.
+__device__ __forceinline__ __nv_bfloat162* act_ptr(unsigned char* act, int row, int col) {
+  return reinterpret_cast<__nv_bfloat162*>(act + (col >> 6) * (BM * 128) + row * 128 +
+                                           ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
+}
+
+// ---- the epilogue, from the accumulators of both warpgroups: warpgroup wg
+// holds columns cb = wg * H / 2 ... of all 64 rows, a thread rows ra and
+// ra + 8 (register i of block j: row ra + 8 (i & 2) / 2, column acc_col)
+
+__device__ __forceinline__ int acc_col(int cb, int j, int i) {
+  return cb + j * 64 + (i >> 2) * 8 + (threadIdx.x & 3) * 2 + (i & 1);
+}
+
+// Orders 16 accumulator registers against the code around it: whatever
+// computes them before is done before, whatever reads them after starts
+// after.  Between two such groups the compiler cannot interleave the work of
+// both, which bounds the epilogue's temporaries beside the 128 accumulators
+// to one group's.  Only where no wgmma on them is in flight.
+template <int O>
+__device__ __forceinline__ void fence_group16(float (&d)[32]) {
+#pragma unroll
+  for (int i = O; i < O + 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// h = acc + bias, a = ELU(h) = h > 0 ? h : exp(h) - 1, in place; the
+// thread's partial sums of a over its columns of rows ra (s0), ra + 8 (s1).
+// exp - 1 of every element, then a select: branch-free, so the compiler
+// interleaves the expf of a group's elements (a branch per element left the
+// epilogue waiting on each expf in turn).
+template <int NB>
+__device__ __forceinline__ void bias_elu(float (&acc)[NB][32], const float* bias, int cb,
+                                         float& s0, float& s1) {
+  s0 = s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      if (g == 0) fence_group16<0>(acc[j]);
+      else fence_group16<16>(acc[j]);
+#pragma unroll
+      for (int i = 16 * g; i < 16 * g + 16; i += 2) {
+        const float2 bb = *reinterpret_cast<const float2*>(bias + acc_col(cb, j, i));
+        float h0 = acc[j][i] + bb.x, h1 = acc[j][i + 1] + bb.y;
+        const float e0 = expf(h0) - 1.f, e1 = expf(h1) - 1.f;
+        h0 = h0 > 0.f ? h0 : e0;
+        h1 = h1 > 0.f ? h1 : e1;
+        acc[j][i] = h0;
+        acc[j][i + 1] = h1;
+        if (i & 2) s1 += h0 + h1;
+        else s0 += h0 + h1;
+      }
+      if (g == 0) fence_group16<0>(acc[j]);
+      else fence_group16<16>(acc[j]);
+    }
+  }
+}
+
+// The thread's partial sums of (a - mu)^2 of rows ra (q0), ra + 8 (q1).
+// Each group of 16 accumulators is fenced first (fence_group16), which
+// bounds how far the compiler runs ahead computing squares.
+template <int NB>
+__device__ __forceinline__ void sq_dev(float (&acc)[NB][32], float mu0, float mu1, float& q0,
+                                       float& q1) {
+  q0 = q1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i == 0) fence_group16<0>(acc[j]);
+      if (i == 16) fence_group16<16>(acc[j]);
+      const float d = acc[j][i] - ((i & 2) ? mu1 : mu0);
+      if (i & 2) q1 += d * d;
+      else q0 += d * d;
+    }
+}
+
+// bf16(acc) into act.
+template <int NB>
+__device__ __forceinline__ void acc_to_act(const float (&acc)[NB][32], unsigned char* act, int cb,
+                                           int ra) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      *act_ptr(act, ra + ((i & 2) ? 8 : 0), acc_col(cb, j, i)) =
+          __floats2bfloat162_rn(acc[j][i], acc[j][i + 1]);
+}
+
+// y = (a - mu) * inv * gamma + beta in place of a.  Each group of 16
+// accumulators is fenced first, so a - mu is computed here again and not
+// kept from the variance pass.
+template <int NB>
+__device__ __forceinline__ void layer_norm(float (&acc)[NB][32], const float* g, const float* be,
+                                           float mu0, float mu1, float inv0, float inv1, int cb) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      if (i == 0) fence_group16<0>(acc[j]);
+      if (i == 16) fence_group16<16>(acc[j]);
+      const int col = acc_col(cb, j, i);
+      const bool lower = (i & 2) != 0;
+      const float mu = lower ? mu1 : mu0, inv = lower ? inv1 : inv0;
+      const float2 gg = *reinterpret_cast<const float2*>(g + col);
+      const float2 bb = *reinterpret_cast<const float2*>(be + col);
+      acc[j][i] = (acc[j][i] - mu) * inv * gg.x + bb.x;
+      acc[j][i + 1] = (acc[j][i + 1] - mu) * inv * gg.y + bb.y;
+    }
+  }
+}
+
+// act's H / 64 atoms to rows row0 ... of agent n of `map` by TMA (rows past
+// the array's end are not written), as one bulk group.
+template <int H>
+__device__ __forceinline__ void store_act(const CUtensorMap* map, unsigned char* act, int row0,
+                                          int n) {
+#pragma unroll
+  for (int bx = 0; bx < H / 64; ++bx) tma_store(map, act + bx * (BM * 128), 64 * bx, row0, n);
+  bulk_commit();
+}
+
+// The forward of B2 (L = 1, store_a: y and a) and B4 (L layers, only the
+// last y) at width H = 128 HK, in a persistent grid of FWD_CL-block
+// clusters.  A work item is FWD_CL consecutive 64-row blocks of one agent,
+// one per block of the cluster; clusters walk the items in order, so the
+// whole grid works on one agent's W at a time.  A block whose rows lie past
+// B (a ragged tail) runs every product and stores nothing.
+//   Producer warp (a warpgroup under setmaxnreg 40): per layer and K step of
+//   FK, one ring stage: layer 0's x tile and its g0/b0 for this block's rows
+//   (rows past B read as zeros), and the W tile, each of its 64-column boxes
+//   loaded once by one block and multicast to the cluster.  It runs ahead
+//   into the next item while the consumers finish this one.
+//   Consumers (two warpgroups, 232 registers): per layer, fwd_product into
+//   the accumulators (layer 0 streams x, later layers read act), then the
+//   epilogue from the accumulators: bias and ELU, the row statistics across
+//   the warpgroups (row_allreduce2), the LayerNorm, bf16(y) into act; the
+//   last layer's y (and B2's a, staged in act before y) leave by TMA stores
+//   that run on under the next item's products.
+template <int HK>
+__device__ __forceinline__ void fwd_body(const FwdMaps& maps, int N, int B, int Din, int L,
+                                         int x_agents, bool store_a, const float* __restrict__ g0,
+                                         const float* __restrict__ b0, const Layers& p) {
+  constexpr int H = 128 * HK, CL = FWD_CL;
+  constexpr float INV_H = 1.f / H;  // a mean is the sum times 1/H, as torch's mean computes it
+  using S = FwdSmem<HK>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* act = smem;
+  float* vec = reinterpret_cast<float*>(smem + S::VEC);
+  float* stats = reinterpret_cast<float*>(smem + S::STATS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* empty = full + S::STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = (int)cluster_rank();
+  if (tid == 0) ring_init(full, empty, S::STAGES, CL);
+  mbar_init_fence();
+  __syncwarp();
+  cluster_sync();  // every block's barriers are set before any multicast or remote arrival
+  Ring ring{full, empty, smem + S::RING, S::STAGE, S::STAGES, 0, 0};
+  const int nblk = (B + BM - 1) / BM, per_agent = (nblk + CL - 1) / CL, items = N * per_agent;
+  const int first = (int)cluster_id(), stride = (int)cluster_count();
+
+  if (warp >= 8) {  // ---- producer
+    regs_dealloc<PRODUCER_REGS>();
+    if (warp == 8 && lane == 0) {
+      const uint16_t mask = (uint16_t)((1u << CL) - 1);
+      for (int item = first; item < items; item += stride) {
+        const int n = item / per_agent, row0 = ((item % per_agent) * CL + rank) * BM;
+        const int nx = x_agents > 1 ? n : 0;
+        for (int l = 0; l < L; ++l) {
+          const int K = l == 0 ? Din : H;
+          for (int ks = 0; ks < K / FK; ++ks) {
+            ring.producer_acquire();
+            unsigned char* buf = ring.buf();
+            uint64_t* bar = &full[ring.stage];
+            mbar_expect_tx(bar, S::W_BYTES + (l == 0 ? XT_BYTES + 2 * FK * 4 : 0));
+            if (l == 0) {
+              tma_load(buf, &maps.x, bar, ks * FK, row0, nx);
+              bulk_load(buf + S::GB, g0 + (size_t)n * Din + ks * FK, FK * 4, bar);
+              bulk_load(buf + S::GB + FK * 4, b0 + (size_t)n * Din + ks * FK, FK * 4, bar);
+            }
+            for (int bx = rank; bx < H / 64; bx += CL)
+              tma_load_mc(buf + XT_BYTES + bx * FBOX, &maps.w[l], bar, mask, 64 * bx, ks * FK, n);
+            ring.advance();
+          }
+        }
+      }
+    }
+  } else {
+    regs_alloc<CONSUMER_REGS>();
+    // ---- consumers: warpgroup wg computes columns cb ... of every product
+    const int wg = warp >> 2, cb = wg * (H / 2);
+    const bool elected = (tid & 127) == 0;
+    const int ra = (warp & 3) * 16 + (lane >> 2);
+    const uint32_t act_u = smem_u32(act);
+    int sb = 0;  // the stats buffer of the next row reduction
+    auto rows_sum = [&](float& v0, float& v1) {
+      row_allreduce2(v0, v1, stats + sb * 128, wg, ra);
+      sb ^= 1;
+    };
+    float acc[HK][32];
+    for (int item = first; item < items; item += stride) {
+      const int n = item / per_agent, row0 = ((item % per_agent) * CL + rank) * BM;
+      const bool store = row0 < B;
+      for (int l = 0; l < L; ++l) {
+        const bool last = l == L - 1, with_a = store_a && last;
+        // vectors are read from shared memory, staged once per layer
+        for (int c = tid; c < 3 * H; c += CONSUMERS) {
+          const int q = c / H;
+          const float* src = q == 0 ? p.b[l] : q == 1 ? p.g[l] : p.be[l];
+          vec[c] = src[(size_t)n * H + c - q * H];
+        }
+        fwd_product<HK, CL>(acc, HK, act_u, l == 0 ? Din : H, ring, XT_BYTES, S::GB, wg, elected,
+                            l == 0);
+        if (tid == 0) bulk_wait_read<0>();  // the stores before have read act
+        consumers_sync();                   // (and vec is staged)
+        float s0, s1, q0, q1;
+        bias_elu<HK>(acc, vec, cb, s0, s1);
+        if (with_a) {  // a leaves first, through act
+          acc_to_act<HK>(acc, act, cb, ra);
+          fence_async_smem();
+        }
+        rows_sum(s0, s1);
+        if (with_a && tid == 0 && store) store_act<H>(&maps.a, act, row0, n);
+        const float mu0 = s0 * INV_H, mu1 = s1 * INV_H;
+        sq_dev<HK>(acc, mu0, mu1, q0, q1);
+        rows_sum(q0, q1);  // both warpgroups are past their products: act may take the output
+        const float inv0 = rsqrtf(q0 * INV_H + EPS), inv1 = rsqrtf(q1 * INV_H + EPS);
+        layer_norm<HK>(acc, vec + H, vec + 2 * H, mu0, mu1, inv0, inv1, cb);  // y, in registers
+        if (with_a) {  // (a's store ran on under the LayerNorm)
+          if (tid == 0) bulk_wait_read<0>();  // a's store has read act
+          consumers_sync();
+        }
+        acc_to_act<HK>(acc, act, cb, ra);
+        fence_async_smem();  // the next layer's wgmma or the y store reads act
+        consumers_sync();
+        if (last && tid == 0 && store) store_act<H>(&maps.y, act, row0, n);
+      }
+    }
+    if (tid == 0) bulk_wait<0>();
+  }
+  __syncwarp();
+  cluster_sync();  // no block leaves while another may multicast into it or arrive on its barriers
+}
+
+// Launches a forward kernel (fwd_body) on the card in FWD_CL-block clusters,
+// at most as many as can be resident at once (found once per kernel, kept
+// in *max_clusters), each walking work items.  Returns 0 or a CUDA error.
+template <typename Kern, typename... Args>
+int launch_fwd_clusters(Kern kernel, size_t smem, int* max_clusters, int N, int B,
+                        cudaStream_t st, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = FWD_CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(RP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (*max_clusters == 0) {
+    int err = allow_smem(kernel, smem);
+    if (err != 0) return err;
+    cfg.gridDim = dim3(FWD_CL * sm_count());
+    int mc = 0;
+    err = (int)cudaOccupancyMaxActiveClusters(&mc, (const void*)kernel, &cfg);
+    if (err != 0) return err;
+    if (mc < 1) return (int)cudaErrorInvalidConfiguration;
+    *max_clusters = mc;
+  }
+  const int nblk = (B + BM - 1) / BM, items = N * ((nblk + FWD_CL - 1) / FWD_CL);
+  cfg.gridDim = dim3((items < *max_clusters ? items : *max_clusters) * FWD_CL);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // ---------------------------------------------------------------------------
@@ -502,17 +1053,6 @@ __global__ void reduce_dw_kernel(long long total, int S, const float* __restrict
   dw[i] = s;
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
-      n = 132;
-  }
-  return n;
-}
-
 // Row splits of the dW pass: tiles x splits about one wave on the card (one
 // block per SM), each split a multiple of DW_KR rows and at least 256 rows.
 void dw_split(int N, int B, int Din, int H, int* S, int* rows) {
@@ -550,7 +1090,7 @@ int launch_dw(int N, int B, int Din, int H, long long sx, const bf16* x, const f
   err = (int)cudaGetLastError();
   if (err != 0 || S == 1) return err;
   const long long total = (long long)N * Din * H;
-  reduce_dw_kernel<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(total, S,
+  reduce_dw_kernel<<<(unsigned)((total + RED_THREADS - 1) / RED_THREADS), RED_THREADS, 0, st>>>(total, S,
                                                                                    dwp, dw);
   return (int)cudaGetLastError();
 }
@@ -573,7 +1113,7 @@ size_t dw_partial_bytes(int N, int B, int Din, int H) {
 // [2][N][Din].  The same bits on every run.
 
 int colsum_groups(int N, int nblk, int P) {
-  int g = (4 * sm_count() * THREADS) / (N * P);
+  int g = (4 * sm_count() * RED_THREADS) / (N * P);
   g = g > 64 ? 64 : g;
   g = g > nblk ? nblk : g;
   return g < 1 ? 1 : g;
@@ -617,11 +1157,11 @@ __global__ void colsum_final_kernel(int N, int P, int G, int HH, int H, int Din,
 int launch_colsum(int N, int nblk, int P, int HH, int H, int Din, const float* part, float* tmp,
                   float* vh, float* vd, cudaStream_t st) {
   const int G = colsum_groups(N, nblk, P);
-  colsum_partial_kernel<<<dim3((P + THREADS - 1) / THREADS, G, N), THREADS, 0, st>>>(
+  colsum_partial_kernel<<<dim3((P + RED_THREADS - 1) / RED_THREADS, G, N), RED_THREADS, 0, st>>>(
       N, nblk, P, G, part, tmp);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  colsum_final_kernel<<<(N * P + THREADS - 1) / THREADS, THREADS, 0, st>>>(N, P, G, HH, H, Din,
+  colsum_final_kernel<<<(N * P + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, st>>>(N, P, G, HH, H, Din,
                                                                           tmp, vh, vd);
   return (int)cudaGetLastError();
 }

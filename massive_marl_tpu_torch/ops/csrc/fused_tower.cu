@@ -1,6 +1,6 @@
 // The whole MLPBase tower, forward (B4) and backward (B5), for agent-stacked
-// operands (CUDA C++ for sm_90a: B4 on wmma; B5 on wgmma with TMA-fed rings
-// of shared-memory tiles).
+// operands: CUDA C++ for sm_90a, both on wgmma fed by TMA through mbarrier
+// rings of shared-memory tiles.
 //
 // Replaces the TPU kernels massive_marl_tpu/ops/fused_mlp.py::
 // _tower_fwd_kernel (B4) and ::_tower_bwd_kernel (B5).  The plain PyTorch
@@ -23,15 +23,28 @@
 //             gives dg0 = sum dx_raw*x and db0 = sum dx_raw, and dx =
 //             bf16(dx_raw*g0) when asked for.
 //
+// What bounds it on this card: the tower moves only x, the weights and y (B5
+// also dy and the gradients), and its L products do ~750 (B4) and ~2,100
+// (B5, with the forward it recomputes) operations per byte that must move
+// at the main path's critic tower (B = 32,768, Din = H = 512, L = 3), above
+// the ~295 operations per byte at which the tensor cores and not device
+// memory bound a kernel: both are bound by operations.
+//
 // Design.  The TPU kernel keeps every layer of a 512-row block in VMEM and
 // carries its sums across the in-order grid.  A Hopper block has 227 KB of
 // shared memory and blocks run in no order, so:
-//   * B4: a block owns BM = 64 whole rows through all layers.  Its current
-//     layer input (bf16, 64 KB at width 512) stays in shared memory as the
-//     product's A operand; W is staged in K tiles of 32 rows into a region
-//     that, after the product, holds the f32 tile (128 KB at H = 512) for the
-//     bias/ELU/LayerNorm epilogue, which writes the next layer's input in
-//     place.  Nothing but the last y leaves the block: no residuals.
+//   * B4 (tower_fwd_wgmma_kernel) is fwd_body of fused_mlp_common.cuh, B2's
+//     forward with L layers.  A persistent grid of 2-block clusters walks
+//     work items of two 64-row blocks of one agent.  Layer 0 streams x
+//     through the ring with W_0 (the input affine applied in place); its
+//     epilogue, from the accumulators, writes x_1 into a resident
+//     [64 rows][H] bf16 buffer, the A operand of the next layer, and so on.
+//     Only the last y leaves, staged in that buffer, by TMA stores that run
+//     on under the next item's layer-0 product.  Each W tile is read from
+//     L2 once per cluster and multicast to both blocks, which halves the L2
+//     traffic of W (805 -> 403 MB at the critic tower); the producer keeps
+//     the ring full across layers and items.  The epilogues still run on
+//     the warps that issue the products.
 //   * B5: a row pass (tower_bwd_wgmma_kernel) owns 64 rows.  A producer
 //     warp streams W_0 .. W_{L-1} and then W_{L-1}^T .. W_0^T by TMA
 //     through a ring of four 32 KB tiles; two consumer warpgroups each
@@ -39,200 +52,45 @@
 //     (x_l, then dh16_l) resident in shared memory as the A operand and
 //     each product's f32 result held in the accumulators (64 x 512 f32 over
 //     the two warpgroups is 128 registers a thread; setmaxnreg gives the
-//     consumers 232).  Only per-row statistics cross between the warpgroups,
-//     through shared memory: no f32 dy tile.  The forward writes x_l (l >=
-//     1) and a_l to a scratch buffer; the backward reads a_l back by TMA,
-//     overwrites it with dh16_l, keeps dy f32 in the accumulators from one
-//     layer to the next, and writes one partial column sum per block for
-//     every db, dgamma, dbeta, dg0 and db0.  Then the dW pass
-//     (fused_mlp_common.cuh, shared with B3) runs once per layer on x_l and
-//     dh16_l, and fixed-order reductions sum the partials: no atomics, the
-//     same bits every run.  The scratch lives only for the backward call.
-//
-// What bounds it on this card: the tower moves only x, the weights and y (B5
-// also dy and the gradients), and its L products do ~750 (B4) and ~2,100
-// (B5, with the forward it recomputes) operations per byte that must move
-// at the main path's critic tower (B = 32,768, Din = H = 512, L = 3), above
-// the ~295 operations per byte at which the tensor cores and not device
-// memory bound a kernel: both are bound by operations.  B4 (unchanged,
-// wmma from shared memory, no pipeline) is far from that.  B5's products
-// now run on wgmma fed by TMA; what still holds it back is the work between
-// them.  The LayerNorm/ELU epilogues (row statistics across the two
-// warpgroups, column sums by shuffles, scratch stores) run on the same warps
-// as the products with nothing to overlap them at one block per SM, and
-// every 64-row block streams all of W (~3 MB at the critic tower) from L2
-// again.
+//     consumers 232).  Its forward products are fwd_product's, B2's and
+//     B4's routine: the wgmmas of B5's own earlier product, in the same
+//     order, after one change: the accumulators are zeroed and fenced
+//     before the first wgmma (which still ignores them), so the values of
+//     the epilogue before die after their last use.
+//     Only per-row statistics cross between the warpgroups, through shared
+//     memory: no f32 dy tile.  The forward writes x_l (l >= 1) and a_l to a
+//     scratch buffer; the backward reads a_l back by TMA, overwrites it with
+//     dh16_l, keeps dy f32 in the accumulators from one layer to the next,
+//     and writes one partial column sum per block for every db, dgamma,
+//     dbeta, dg0 and db0.  Then the dW pass (fused_mlp_common.cuh, shared
+//     with B3) runs once per layer on x_l and dh16_l, and fixed-order
+//     reductions sum the partials: no atomics, the same bits every run.  The
+//     scratch lives only for the backward call.  What holds B5 back is the
+//     work between its products: the epilogues run on the same warps as the
+//     products with nothing to overlap them at one block per SM, and every
+//     64-row block streams all of W (~3 MB at the critic tower) from L2.
 
 #include "fused_mlp_common.cuh"
 
 namespace {
-
-constexpr int MAXL = 8;  // layers a tower may have
-
-struct Layers {
-  const bf16* w[MAXL];
-  const float* b[MAXL];
-  const float* g[MAXL];
-  const float* be[MAXL];
-};
-
-__host__ __device__ inline size_t round128(size_t n) { return (n + 127) & ~size_t(127); }
-
-// Shared memory of a B4 block, D = max(Din, H):
-//   R1  W K-tiles, then the f32 product tile [BM][H + 4];
-//   R2  the layer input [BM][D + 8] bf16.
-struct Regions {
-  size_t r1, r2;
-  __host__ __device__ Regions(int Din, int H) {
-    const size_t D = Din > H ? Din : H;
-    const size_t a = (size_t)BM * (H + 4) * 4, b = (size_t)KT * (H + 8) * 2;
-    r1 = round128(a > b ? a : b);
-    r2 = round128((size_t)BM * (D + 8) * 2);
-  }
-  __host__ __device__ size_t total() const { return r1 + r2; }
-};
-
-// The forward of all L layers for the block's BM rows.  Rows past B are
-// computed from zero inputs and never stored.  B4 passes y and no scratch;
-// B5 passes the scratch (ad: a_l at l*NBH; xs: x_{l+1} at l*NBH)
-// and no y, and its last layer stops after a.
-template <int HK>
-__device__ void tower_forward(int B, int Din, int L, long long sx, const bf16* __restrict__ x,
-                              const float* __restrict__ g0, const float* __restrict__ b0,
-                              const Layers& p, unsigned char* R1, bf16* Xs, int LDX,
-                              bf16* __restrict__ y, bf16* __restrict__ ad,
-                              bf16* __restrict__ xs) {
-  constexpr int H = 128 * HK;
-  constexpr int LDB = H + 8, LDC = H + 4;
-  constexpr int FN = H / 4 / 16;  // accumulator fragments across a warp's columns
-  bf16* Bs = reinterpret_cast<bf16*>(R1);    // [KT][LDB] w tile
-  float* Cs = reinterpret_cast<float*>(R1);  // [BM][LDC] after the product
-  const int n = blockIdx.y, N = gridDim.y, row0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp >> 2, wc = warp & 3;
-  const size_t NBH = (size_t)N * B * H;
-
-  {  // layer 0's input: xt = bf16(x*g0 + b0), 8 values per thread and step
-    const bf16* xn = x + n * sx;
-    const float* g0n = g0 + (size_t)n * Din;
-    const float* b0n = b0 + (size_t)n * Din;
-    for (int idx = tid; idx < BM * Din / 8; idx += THREADS) {
-      const int r = idx / (Din / 8), c = (idx % (Din / 8)) * 8, gr = row0 + r;
-      *reinterpret_cast<uint4*>(Xs + r * LDX + c) =
-          load_xt8(xn + (size_t)(gr < B ? gr : 0) * Din, g0n, b0n, c, gr < B);
-    }
-  }
-  __syncthreads();
-
-  for (int l = 0; l < L; ++l) {
-    const int K = l == 0 ? Din : H;
-    const bf16* wn = p.w[l] + (size_t)n * K * H;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += KT) {
-      for (int idx = tid; idx < KT * H / 8; idx += THREADS) {
-        const int r = idx / (H / 8), c = (idx % (H / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-            *reinterpret_cast<const uint4*>(wn + (size_t)(k0 + r) * H + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KT; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(af[i], Xs + (wr * 32 + i * 16) * LDX + k0 + kk, LDX);
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, Bs + kk * LDB + wc * (H / 4) + j * 16, LDB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * LDC + wc * (H / 4) + j * 16,
-                                acc[i][j], LDC, wmma::mem_row_major);
-    __syncthreads();
-
-    // epilogue: one warp per row, H / 32 columns per lane
-    const bool last = l == L - 1;
-    const float* bn = p.b[l] + (size_t)n * H;
-    const float* gn = p.g[l] + (size_t)n * H;
-    const float* ben = p.be[l] + (size_t)n * H;
-    for (int rr = 0; rr < BM / 8; ++rr) {
-      const int r = warp * (BM / 8) + rr, gr = row0 + r;
-      const bool valid = gr < B;
-      const size_t orow = ((size_t)n * B + gr) * H;
-      float v[H / 32];
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < H / 32; ++j) {
-        const int c = lane + 32 * j;
-        const float h = Cs[r * LDC + c] + bn[c];
-        v[j] = h > 0.f ? h : expf(h) - 1.f;
-        s += v[j];
-      }
-      if (ad != nullptr && valid) {
-#pragma unroll
-        for (int j = 0; j < H / 32; ++j)
-          ad[l * NBH + orow + lane + 32 * j] = __float2bfloat16(v[j]);
-      }
-      if (last && y == nullptr) continue;  // B5 needs no LayerNorm output of the last layer
-      const float mu = warp_sum(s) / H;
-      float q = 0.f;
-#pragma unroll
-      for (int j = 0; j < H / 32; ++j) {
-        const float d = v[j] - mu;
-        q += d * d;
-      }
-      const float inv = rsqrtf(warp_sum(q) / H + EPS);
-#pragma unroll
-      for (int j = 0; j < H / 32; ++j) {
-        const int c = lane + 32 * j;
-        const bf16 yv = __float2bfloat16((v[j] - mu) * inv * gn[c] + ben[c]);
-        if (!last) {
-          Xs[r * LDX + c] = yv;
-          if (xs != nullptr && valid) xs[l * NBH + orow + c] = yv;
-        } else if (valid) {
-          y[orow + c] = yv;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // B4
 // ---------------------------------------------------------------------------
 
 template <int HK>
-__global__ void __launch_bounds__(THREADS)
-tower_fwd_kernel(int B, int Din, int L, long long sx, const bf16* __restrict__ x,
-                 const float* __restrict__ g0, const float* __restrict__ b0, Layers p,
-                 bf16* __restrict__ y) {
-  constexpr int H = 128 * HK;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Regions reg(Din, H);
-  const int LDX = (Din > H ? Din : H) + 8;
-  tower_forward<HK>(B, Din, L, sx, x, g0, b0, p, smem, reinterpret_cast<bf16*>(smem + reg.r1),
-                    LDX, y, nullptr, nullptr);
+__global__ void __launch_bounds__(RP_THREADS, 1)
+tower_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, int N, int B, int Din, int L,
+                       int x_agents, const float* __restrict__ g0, const float* __restrict__ b0,
+                       const __grid_constant__ Layers p) {
+  fwd_body<HK>(maps, N, B, Din, L, x_agents, false, g0, b0, p);
 }
 
 // ---------------------------------------------------------------------------
 // B5: the row pass (forward recompute and the backward chain on wgmma)
 // ---------------------------------------------------------------------------
 
-constexpr int T5_KD = 32;     // depth of a W tile
+constexpr int T5_KD = FK;     // depth of a W tile (fwd_product's stage depth)
 constexpr int T5_STAGES = 4;
 constexpr uint32_t T5_STAGE_BYTES = 32 * 512 * 2;  // a W tile: 32 x H (forward) or Din_l x 32
 constexpr int T5_NB = 4;      // 64-column accumulator blocks per consumer warpgroup (256 columns)
@@ -269,15 +127,14 @@ __host__ __device__ inline TowerSmem tower_layout(int Din, int H) {
 // block j of a thread at quad row r (rows r and r + 8).
 #define T5_COL(cb, j, i) ((cb) + (j) * 64 + ((i) >> 2) * 8 + (lane & 3) * 2 + ((i) & 1))
 
-// One product of a 64-row block, run by both consumer warpgroups: acc =
-// act[64 x K] @ B over K in ring tiles of T5_KD, nb 64-column blocks per
-// warpgroup.  BMN: the tiles are [T5_KD][width] MN-major (forward, W_l as
-// stored), else [width][T5_KD] K-major (backward, W_l^T); width is the full
-// product width, the warpgroup's half starting at column wg * nb * 64.
-template <bool BMN>
-__device__ __forceinline__ void tower_product(float (&acc)[T5_NB][32], int nb, uint32_t act, int K,
-                                              Ring& ring, int width, int wg, bool elected) {
-  constexpr uint32_t FBOX = T5_KD * 128;  // a forward box: 64 columns x T5_KD rows
+// A backward product of a 64-row block, run by both consumer warpgroups:
+// acc = act[64 x K] @ W_l^T over K in ring tiles [width][T5_KD] (K-major,
+// 64-byte swizzle), nb 64-column blocks per warpgroup; width is the full
+// product width, the warpgroup's half starting at column wg * nb * 64.  The
+// forward products are fwd_product's (fused_mlp_common.cuh).
+__device__ __forceinline__ void tower_bwd_product(float (&acc)[T5_NB][32], int nb, uint32_t act,
+                                                  int K, Ring& ring, int width, int wg,
+                                                  bool elected) {
   int prev = -1;
   for (int ks = 0; ks < K / T5_KD; ++ks) {
     ring.consumer_wait();
@@ -287,14 +144,10 @@ __device__ __forceinline__ void tower_product(float (&acc)[T5_NB][32], int nb, u
     for (int k = 0; k < T5_KD / 16; ++k) {
       const int s = ks * 2 + k;  // k16 step: atom s / 4, 32 B per step inside it
       const uint64_t da = make_desc_sw(act + (s >> 2) * (BM * 128) + (s & 3) * 32, 16, 1024, 1);
-      if (BMN)  // 64-column boxes FBOX apart, 8-row k groups 1024 B apart
-        wgmma_k16<T5_NB, 0, 1>(acc, nb, da,
-                               make_desc_sw(b + wg * nb * FBOX + k * 2048, FBOX, 1024, 1),
-                               FBOX >> 4, (ks | k) != 0);
-      else      // rows of 64 B, 8-row groups 512 B apart, k16 steps 32 B
-        wgmma_k16<T5_NB, 0, 0>(acc, nb, da,
-                               make_desc_sw(b + wg * (width / 2) * 64 + k * 32, 16, 512, 2),
-                               (64 * 64) >> 4, (ks | k) != 0);
+      // rows of 64 B, 8-row groups 512 B apart, k16 steps 32 B
+      wgmma_k16<T5_NB, 0, 0>(acc, nb, da,
+                             make_desc_sw(b + wg * (width / 2) * 64 + k * 32, 16, 512, 2),
+                             (64 * 64) >> 4, (ks | k) != 0);
     }
     wg_commit();
     wg_wait<1>();  // the step before is done: its stage may be refilled
@@ -305,13 +158,6 @@ __device__ __forceinline__ void tower_product(float (&acc)[T5_NB][32], int nb, u
   wg_wait<0>();
   fence_acc(acc);
   release_stage(&ring.empty[prev], elected);
-}
-
-// The bf16 pair at (row, col) of the act buffer: atom col / 64, 16-byte
-// chunk (col % 64) / 8 swizzled with row % 8.
-__device__ __forceinline__ __nv_bfloat162* act_ptr(unsigned char* act, int row, int col) {
-  return reinterpret_cast<__nv_bfloat162*>(act + (col >> 6) * (BM * 128) + row * 128 +
-                                           ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
 }
 
 // The tensor maps of the W tiles, W_l as stored (forward) and as W_l^T
@@ -443,7 +289,7 @@ tower_bwd_wgmma_kernel(const __grid_constant__ TowerMaps maps, int B, int Din, i
       stage(0, p.b[l] + (size_t)n * H, H);
       stage(1, p.g[l] + (size_t)n * H, H);
       stage(2, p.be[l] + (size_t)n * H, H);
-      tower_product<true>(acc, NBH, act_u, K, ring, H, wg, elected);
+      fwd_product<T5_NB, 1>(acc, NBH, act_u, K, ring, 0, 0, wg, elected, false);
       consumers_sync();
       const float* bn = vec;
       bf16* adl = ad + l * NBHt;
@@ -621,7 +467,7 @@ tower_bwd_wgmma_kernel(const __grid_constant__ TowerMaps maps, int B, int Din, i
 
       // the next dy (or layer 0's dx_raw) = dh16 @ w_l^T, f32
       const int Nl = l == 0 ? Din : H;
-      tower_product<false>(acc, Nl / 128, act_u, H, ring, Nl, wg, elected);
+      tower_bwd_product(acc, Nl / 128, act_u, H, ring, Nl, wg, elected);
     }
 
     // layer 0: dg0 = sum dx_raw * x, db0 = sum dx_raw; dx = bf16(dx_raw * g0)
@@ -696,14 +542,24 @@ Layers make_layers(int L, const void* const* w, const void* const* b, const void
 template <int HK>
 int launch_tower_fwd(int N, int B, int Din, int L, long long sx, const void* x, const void* g0,
                      const void* b0, const Layers& p, void* y, cudaStream_t st) {
-  const size_t smem = Regions(Din, 128 * HK).total();
-  const int err = allow_smem(tower_fwd_kernel<HK>, smem);
+  constexpr int H = 128 * HK;
+  static int max_clusters = 0;
+  const int xa = sx == 0 ? 1 : N;
+  FwdMaps maps;
+  memset(&maps, 0, sizeof maps);
+  int err = make_map(&maps.x, x, Din, B, xa, (uint64_t)Din * 2, (uint64_t)B * Din * 2, FK, BM,
+                     CU_TENSOR_MAP_SWIZZLE_64B);
+  for (int l = 0; l < L && err == 0; ++l) {
+    const int K = l == 0 ? Din : H;
+    err = make_map(&maps.w[l], p.w[l], H, K, N, (uint64_t)H * 2, (uint64_t)K * H * 2, 64, FK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err == 0)
+    err = make_map(&maps.y, y, H, B, N, (uint64_t)H * 2, (uint64_t)B * H * 2, 64, BM,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  dim3 grid((B + BM - 1) / BM, N);
-  tower_fwd_kernel<HK><<<grid, THREADS, smem, st>>>(B, Din, L, sx, (const bf16*)x,
-                                                    (const float*)g0, (const float*)b0, p,
-                                                    (bf16*)y);
-  return (int)cudaGetLastError();
+  return launch_fwd_clusters(tower_fwd_wgmma_kernel<HK>, FwdSmem<HK>::TOTAL, &max_clusters, N, B,
+                             st, maps, N, B, Din, L, xa, (const float*)g0, (const float*)b0, p);
 }
 
 template <int HK>

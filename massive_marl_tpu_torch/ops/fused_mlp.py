@@ -178,6 +178,7 @@ fused_mlp_lib = CudaLib("fused_mlp.cu", {
     "dense_elu_ln_fwd": ([_I] * 4 + [_LL] + [_P] * 10, _I),
     "dense_elu_ln_bwd_scratch": ([_I] * 4, _LL),
     "dense_elu_ln_bwd": ([_I] * 4 + [_LL] + [_P] * 13, _I),
+    "mlp_fwd_cluster_blocks": ([], _I),
 })
 fused_tower_lib = CudaLib("fused_tower.cu", {
     "mlp_tower_fwd": ([_I] * 5 + [_LL] + [_P] * 3 + [_PP] * 4 + [_P] * 2, _I),
@@ -204,6 +205,15 @@ def _check_x(x, N, B, Din, dev, kind="dense_elu_ln"):
     return x.stride(0)
 
 
+def _check_aligned(kind, **ts):
+    """The forward kernels copy g0 and b0 into shared memory with bulk copies,
+    which need 16-byte-aligned sources: a misaligned view would fault."""
+    for name, t in ts.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kind} kernel: {name} must start at a 16-byte-aligned "
+                             f"address, got {t.data_ptr():#x}")
+
+
 def _check_dims(Din, H):
     if Din % 128 or H not in (128, 256, 384, 512):
         raise ValueError(f"dense_elu_ln kernel takes Din a multiple of 128 and H in "
@@ -211,7 +221,8 @@ def _check_dims(Din, H):
 
 
 class DenseEluLnFwdKernel:
-    """Kernel B2.  `launches` counts kernel launches and nothing else."""
+    """Kernel B2 (one launch of a persistent grid of thread-block clusters).
+    `launches` counts kernel launches and nothing else."""
 
     def __init__(self):
         self.launches = 0
@@ -228,6 +239,7 @@ class DenseEluLnFwdKernel:
         for name, t, d in (("b", b, H), ("gamma", g, H), ("beta", be, H),
                            ("gamma0", g0, Din), ("beta0", b0, Din)):
             _check(name, t, (N, d), torch.float32, dev)
+        _check_aligned("dense_elu_ln", gamma0=g0, beta0=b0)
         lib = fused_mlp_lib.load()
         y = torch.empty((N, B, H), dtype=BF16, device=dev)
         a = torch.empty((N, B, H), dtype=BF16, device=dev)
@@ -373,6 +385,7 @@ class MlpTowerFwdKernel:
 
     def __call__(self, x, g0, b0, ws16, bs, gs, bes):
         N, B, Din, H, L, sx = _check_tower(x, g0, b0, ws16, bs, gs, bes)
+        _check_aligned("mlp_tower", gamma0=g0, beta0=b0)
         dev = x.device
         lib = fused_tower_lib.load()
         y = torch.empty((N, B, H), dtype=BF16, device=dev)

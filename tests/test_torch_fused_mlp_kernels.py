@@ -124,9 +124,12 @@ def _close(got, ref, bf16, name):
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol, err_msg=name)
 
 
-# ragged B (1, 63, 65, 4,096 + 37), every H, Din 128, 384 and 512, N = 10
-# with a shared input; the dW pass's row split is 1 at B <= 256 and more
-# than 1 at (1, 4097, 512, 512) and (1, 4133, 512, 256).  The f32 sums'
+# ragged B (1, 63, 65, 4,096 + 37), every H, Din 128, 384, 512 and 1024,
+# N = 10 with a shared input; the dW pass's row split is 1 at B <= 256 and
+# more than 1 at (1, 4097, 512, 512) and (1, 4133, 512, 256).  B2 runs in
+# clusters of two 64-row blocks of one agent: at (3, 130, ...) each agent
+# has three blocks, so the second block of a cluster's last item lies past
+# the agent's rows.  The f32 sums'
 # 1e-4 of their scale holds where one dh16 rounding the other way (the row
 # statistics are summed in another order than torch's mean) stays inside
 # it: at N = 10 the case takes B = 4,133, not 65
@@ -136,7 +139,9 @@ def _close(got, ref, bf16, name):
                                               (2, 64, 384, 256, True), (1, 1, 128, 128, False),
                                               (1, 63, 128, 512, False), (10, 4133, 512, 384, True),
                                               (1, 4133, 512, 256, False),
-                                              (2, 65, 384, 128, False)])
+                                              (2, 65, 384, 128, False),
+                                              (3, 130, 128, 512, True),
+                                              (1, 300, 1024, 256, False)])
 def test_kernels_match_plain_on_card(cuda, N, B, Din, H, shared):
     d = _inputs(N, B, Din, H, cuda, seed=2, shared=shared)
     nf, nb = fm.fwd_kernel.launches, fm.bwd_kernel.launches
@@ -172,6 +177,10 @@ def test_kernels_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="H in"):
         fm.fwd_kernel(d["x"], w, d["b"][:, :96], d["g"][:, :96], d["be"][:, :96], d["g0"],
                       d["b0"])
+    g0 = torch.empty(d["g0"].numel() + 1, device=d["g0"].device)[1:].view(d["g0"].shape)
+    g0.copy_(d["g0"])  # contiguous, 4 bytes past an aligned address
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fm.fwd_kernel(d["x"], d["w16"], d["b"], d["g"], d["be"], g0, d["b0"])
 
 
 @pytest.mark.cuda

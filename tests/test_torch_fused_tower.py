@@ -238,13 +238,15 @@ def _close(got, ref, kind, name):
 
 # ragged B (1, 63, 65, 4,096 + 37), every H, Din 128 and 512, N = 10 with a
 # shared input, L = 1 and 3; the dW pass's row split is 1 at B <= 256 and
-# more than 1 at (1, 4133, 512, 384) and (1, 4097, 512, 384)
+# more than 1 at (1, 4133, 512, 384) and (1, 4097, 512, 384).  B4 runs in
+# clusters of two 64-row blocks of one agent: at (3, 130, ...) each agent
+# has three blocks, so a cluster's last item runs past the agent's rows
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,b,din,h,shared,layers", [
     (2, 100, 128, 128, False, L), (3, 200, 256, 256, True, L), (1, 4097, 512, 384, False, L),
     (2, 1000, 128, 512, False, L), (10, 640, 512, 512, True, L), (1, 1, 128, 128, False, 1),
     (1, 63, 512, 256, False, 3), (10, 65, 512, 512, True, 1), (1, 4133, 512, 384, False, 3),
-    (2, 4133, 128, 128, False, 1)])
+    (2, 4133, 128, 128, False, 1), (3, 130, 512, 512, True, 3)])
 def test_tower_kernels_match_plain_on_card(cuda, n, b, din, h, shared, layers):
     p = _port(_np_inputs(4, n, b, din, h, layers, shared), cuda, shared)
     ws16 = [w.to(BF16) for w in p["w"]]
@@ -281,6 +283,10 @@ def test_tower_kernels_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="gamma"):
         fm.tower_fwd_kernel(p["x"], p["g0"], p["b0"], ws16, p["b"], [p["g"][0][:, :64]] * 2,
                             p["be"])
+    b0 = torch.empty(p["b0"].numel() + 1, device=p["b0"].device)[1:].view(p["b0"].shape)
+    b0.copy_(p["b0"])  # contiguous, 4 bytes past an aligned address
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fm.tower_fwd_kernel(p["x"], p["g0"], b0, ws16, p["b"], p["g"], p["be"])
 
 
 @pytest.mark.cuda

@@ -9,10 +9,17 @@ the card.  These tests parse the declarations in the sources and hold each
 table entry to them: the argument count, each argument's kind (int, long
 long, pointer, host array of pointers) and the return type.  They need
 neither a card nor nvcc.
+
+test_profiler_groups_name_every_kernel holds `chip_smoke.KERNEL_GROUPS`,
+by which the smoke script sums device time per kernel, to the `__global__`
+kernels of csrc/: each lands in its own kernel's group, so a renamed kernel
+cannot drop out of (or into) another kernel's time.
 """
 import ctypes
 import os
 import re
+
+import sys
 
 import pytest
 
@@ -74,3 +81,46 @@ def test_signature_matches_declaration(lib, name):
     for i, (t, k) in enumerate(zip(argtypes, kinds)):
         assert KINDS[t] == k, f"{name} argument {i}: ctypes {KINDS[t]}, C {k}"
     assert KINDS[restype] == ret, f"{name} returns {ret}, ctypes says {KINDS[restype]}"
+
+
+# the group each kernel's device time belongs to in chip_smoke's profiles
+KERNEL_GROUP_OF = {
+    "substep_kernel": "B1 substep kernel",
+    "dense_fwd_wgmma_kernel": "B2 dense_elu_ln fwd",
+    "ln_bwd_rows_wgmma_kernel": "B3 dense_elu_ln bwd row pass",
+    "tower_fwd_wgmma_kernel": "B4 mlp_tower fwd",
+    "tower_bwd_wgmma_kernel": "B5 mlp_tower bwd row pass",
+    "dw_wgmma_kernel": "B3/B5 dW pass",
+    "reduce_dw_kernel": "B3/B5 dW pass",
+    "colsum_partial_kernel": "B3/B5 partial-sum reductions",
+    "colsum_final_kernel": "B3/B5 partial-sum reductions",
+}
+
+
+def _global_kernels() -> set:
+    """Names of the __global__ functions defined in csrc/."""
+    names = set()
+    for fname in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, fname)) as fh:
+            text = re.sub(r"//[^\n]*", "", fh.read())
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                                text))
+    return names
+
+
+def test_profiler_groups_name_every_kernel():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    kernels = _global_kernels()
+    assert kernels == set(KERNEL_GROUP_OF), kernels ^ set(KERNEL_GROUP_OF)
+    for name in sorted(kernels):
+        # the profiler names a template instance with its namespace and arguments
+        shown = f"void (anonymous namespace)::{name}<4>(CUtensorMap_st, int)"
+        assert chip_smoke.kernel_group(shown) == KERNEL_GROUP_OF[name], name
+    b2, b4 = "B2 dense_elu_ln fwd", "B4 mlp_tower fwd"
+    assert chip_smoke.kernel_group("tower_fwd_wgmma_kernel") != b2
+    assert chip_smoke.kernel_group("dense_fwd_wgmma_kernel") != b4
