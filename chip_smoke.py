@@ -2,17 +2,24 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+`python3 chip_smoke.py --substep-copies A.cu [B.cu ...]` instead times the
+package's substep kernel against development copies of csrc/substep.cu
+(`substep_copies`).
+
 Phases; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build the kernels from massive_marl_tpu_torch/ops/csrc/ (substep.cu:
      B1, its DR instantiation and B6; fused_mlp.cu: B2/B3; fused_tower.cu: B4/B5), one nvcc per
      source, started together; print the build seconds and ptxas' register
-     and spill report;
+     and spill report, and the substep kernel's resident blocks per SM for
+     each instantiation (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. hold B1 against its plain PyTorch version at E=4096 envs x 10 ants
      over four state families (feet on the ground, points inside and just
      outside the push-box, hinges beyond their limits, no box); print the
-     errors per output, the kernel's time (CUDA events, median of 30
-     launches) beside its bound and the plain version's time;
+     errors per output (and whether it is bit-identical), the kernel's time
+     (CUDA events, median of 30 launches) beside its bound, the bound's
+     no-FMA floor (twice the operations bound: under -fmad=false each
+     operation is an instruction) and the plain version's time;
   3b. the same for B1's legacy branch (ContactParams(beta=None)) over the
      same families; then B6 against its plain version at B = 1024 (its TPU
      shape) and B = 40,960 over the debug tool's three scenarios, box on
@@ -101,6 +108,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -273,9 +281,10 @@ def compare_outputs(triples, has_box, label, finite_only=True):
         err = (g - r).abs()
         rel = (err / r.abs().clamp(min=1e-6)).max().item()
         bad = int((err > atol + rtol * r.abs()).sum())
+        same = " (bit-identical)" if torch.equal(g, r) else ""
         print(f"  {label:6s} {name:8s} max|ref| {r.abs().max().item():.6g}  "
               f"max abs err {err.max().item():.3e}  max rel err {rel:.3e}  "
-              f"breaks {bad} (rtol {rtol}, atol {atol})")
+              f"breaks {bad} (rtol {rtol}, atol {atol}){same}")
         if bad:
             raise AssertionError(f"{label}: kernel {name} disagrees with the plain version")
         worst = max(worst, err.max().item())
@@ -291,6 +300,14 @@ def substep_bound(per_art, n_art, n_box, table_numel, n_out, n_dr=0):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = per_art * n_art / FP32_OPS_PER_S * 1e3
     return (ops_ms, "operations", nbytes) if ops_ms >= bytes_ms else (bytes_ms, "bytes", nbytes)
+
+
+def fmt_bound(bound_ms, by) -> str:
+    """A substep bound, with its no-FMA floor when operations bound it: the
+    FP32 rate counts a fused multiply-add as two operations, and under
+    -fmad=false every operation is one instruction."""
+    floor = f", no-FMA floor {2 * bound_ms:.4f} ms" if by == "operations" else ""
+    return f"bound {bound_ms:.4f} ms by {by}{floor}"
 
 
 def count_ops(fn, *args) -> int:
@@ -330,7 +347,7 @@ def legacy_phase(fs, env, dev):
     per_art = ops_per_articulation(fs, c_leg, env)
     leg["bound"], leg["by"], nbytes = substep_bound(per_art, B, E, c_leg.table.numel(), 59)
     print(f"  kernel {leg['ms']:.4f} ms (median of {KERNEL_REPS}), plain {leg['plain_ms']:.2f} ms; "
-          f"bound {leg['bound']:.4f} ms by {leg['by']} ({nbytes / 1e6:.2f} MB, "
+          f"{fmt_bound(leg['bound'], leg['by'])} ({nbytes / 1e6:.2f} MB, "
           f"{per_art:.0f} ops/articulation)")
     del ops
 
@@ -360,8 +377,8 @@ def legacy_phase(fs, env, dev):
                                         warmup=1)}
         row["bound"], row["by"], nbytes = substep_bound(per_art, n, n, c.table.numel(), 35)
         print(f"  B6 at B={n} (chaotic, box): kernel {row['ms']:.4f} ms (median of "
-              f"{KERNEL_REPS}), plain {row['plain_ms']:.2f} ms; bound {row['bound']:.5f} ms by "
-              f"{row['by']} ({nbytes / 1e6:.3f} MB, {per_art:.0f} ops/articulation)")
+              f"{KERNEL_REPS}), plain {row['plain_ms']:.2f} ms; {fmt_bound(row['bound'], row['by'])} "
+              f"({nbytes / 1e6:.3f} MB, {per_art:.0f} ops/articulation)")
         b6[n] = row
         del ops
     return leg, b6
@@ -441,8 +458,8 @@ def dr_kernel_phase(fs, env, root, dev):
     row["bound"], row["by"], nbytes = substep_bound(per_art, B, E, c.table.numel(), 59,
                                                     n_dr=fs.DR_LEN)
     print(f"  B1-DR {row['ms']:.4f} ms (median of {KERNEL_REPS}; B1 without DR {row['b1_ms']:.4f} "
-          f"ms in this call), plain {row['plain_ms']:.2f} ms; bound {row['bound']:.4f} ms by "
-          f"{row['by']} ({nbytes / 1e6:.2f} MB, {per_art:.0f} ops/articulation)")
+          f"ms in this call), plain {row['plain_ms']:.2f} ms; {fmt_bound(row['bound'], row['by'])} "
+          f"({nbytes / 1e6:.2f} MB, {per_art:.0f} ops/articulation)")
     return row
 
 
@@ -1259,6 +1276,120 @@ def marl_phase(dev):
     return main_counts, tower_counts, (runner, tower, trpo)
 
 
+def substep_copies(paths) -> int:
+    """`--substep-copies A.cu [B.cu ...]`: the package's substep kernel
+    (csrc/substep.cu) against development copies of that source, each built
+    with the package's nvcc flags, on the same inputs: B1 at E x A (box, no
+    box, the legacy branch, the DR operand on both branches) and B6 at B =
+    1024 and 40,960.  Prints each build's ptxas report and blocks per SM
+    (where the copy has the query), whether each copy gives the package's
+    bits, and each ms (median of KERNEL_REPS) in two rounds, the second in
+    reverse order.  A copy may change anything but the C interface."""
+    import ctypes
+    import torch
+    from massive_marl_tpu_torch.cli import debug_fused as df
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    from massive_marl_tpu_torch.ops import _build
+    from massive_marl_tpu_torch.ops import fused_substep as fs
+    from massive_marl_tpu_torch.phys import dr as drm
+    from massive_marl_tpu_torch.phys.engine import ContactParams
+    print(smi_line())
+    libs = {"package": fs.substep_kernel.load()}
+    logs = {"package": fs.substep_kernel.build_result.log}
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+
+    def build(path):
+        out = os.path.join(_build.BUILD_DIR, "copy_" + os.path.basename(path)[:-3] + ".so")
+        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
+                              capture_output=True, text=True)
+        logs[path] = proc.stdout + proc.stderr if proc.returncode == 0 else None
+        libs[path] = out
+
+    threads = [threading.Thread(target=build, args=(p,)) for p in paths]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name in list(libs):
+        if logs[name] is None:
+            raise RuntimeError(f"nvcc failed on {name}")
+        if name != "package":
+            libs[name] = ctypes.CDLL(libs[name])
+        for fn, (argtypes, restype) in fs.SubstepKernel.signatures.items():
+            if hasattr(libs[name], fn):
+                getattr(libs[name], fn).argtypes = argtypes
+                getattr(libs[name], fn).restype = restype
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", logs[name])]
+        stack = [int(b) for b in re.findall(r"(\d+) bytes stack frame", logs[name])]
+        lib = libs[name]
+        occ = ([lib.substep_blocks_per_sm(k) for k in range(5)],
+               lib.substep_threads_per_block()) if hasattr(lib, "substep_blocks_per_sm") else None
+        print(f"{name}: registers {regs}, stack bytes {stack}, blocks/SM x threads {occ}")
+
+    dev = torch.device("cuda")
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+
+    def b1(lib, c, ops, dr=None):
+        qpos, qvel, tau, bq, bv = ops
+        B = qpos.shape[1]
+        outs = [torch.empty_like(qpos), torch.empty_like(qvel),
+                torch.empty(6, B, device=dev), torch.empty(6 * 4, B, device=dev)]
+        t = c.device_table(dev)
+        err = lib.substep_launch(t.data_ptr(), t.numel(), c.P, A, B, bq.shape[1], int(c.legacy),
+                                 None if dr is None else dr.data_ptr(),
+                                 *[x.data_ptr() for x in ops], *[o.data_ptr() for o in outs],
+                                 stream())
+        if err:
+            raise RuntimeError(f"substep_launch: CUDA error {err}")
+        return outs
+
+    def b6(lib, c, ops):
+        B = ops[0].shape[1]
+        outs = [torch.empty_like(ops[0]), torch.empty_like(ops[1]), torch.empty(6, B, device=dev)]
+        t = c.device_table(dev)
+        err = lib.debug_substep_launch(t.data_ptr(), t.numel(), c.P, B,
+                                       *[x.data_ptr() for x in ops],
+                                       *[o.data_ptr() for o in outs], stream())
+        if err:
+            raise RuntimeError(f"debug_substep_launch: CUDA error {err}")
+        return outs
+
+    env = TenAntEnv(device=dev, seed=0)
+    ops = make_states(env, E, 1, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    root = os.path.dirname(os.path.abspath(__file__))
+    dro = fs.pack_dr(drm.sample_dr(env.spec.ant_sys, tenant_dr_spec(root, True), (E, A), g))
+    c = env.substep_consts
+    nobox = fs.scene_consts(env.spec._replace(box_sys=None, box_half_extents=None))
+    leg = fs.scene_consts(env.spec._replace(contact=ContactParams(beta=None)))
+    sys_, hinge = env.spec.ant_sys, env.model.init_hinge
+    c6 = df.kernel_consts(sys_, True, clamp=False)
+    ops6 = {n: [x.t().contiguous() for x in df.make_states(sys_, hinge, n, "chaotic", 0, dev)]
+            for n in (1024, E * A)}
+    cases = {"B1": lambda lib: b1(lib, c, ops), "B1 no box": lambda lib: b1(lib, nobox, ops),
+             "B1 legacy": lambda lib: b1(lib, leg, ops),
+             "B1-DR": lambda lib: b1(lib, c, ops, dro),
+             "B1-DR legacy": lambda lib: b1(lib, leg, ops, dro),
+             "B6 1024": lambda lib: b6(lib, c6, ops6[1024]),
+             f"B6 {E * A}": lambda lib: b6(lib, c6, ops6[E * A])}
+    ref = {k: f(libs["package"]) for k, f in cases.items()}
+    same = lambda a, b: all(torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0))
+                            and torch.equal(torch.isnan(x), torch.isnan(y)) for x, y in zip(a, b))
+    for name in paths:
+        print(f"{name}: the package's bits in "
+              f"{[k for k, f in cases.items() if same(f(libs[name]), ref[k])]}")
+    names = list(libs)
+    ms = {n: {k: [] for k in cases} for n in names}
+    for order in (names, names[::-1]):
+        for n in order:
+            for k, f in cases.items():
+                ms[n][k].append(time_cuda_ms(lambda: f(libs[n]), KERNEL_REPS))
+    print(f"ms, median of {KERNEL_REPS} (round 1 / round 2):")
+    for n in names:
+        print(f"  {n}: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in ms[n].items()))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1267,6 +1398,8 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    if sys.argv[1:2] == ["--substep-copies"]:
+        return substep_copies(sys.argv[2:])
     from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
     from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
     from massive_marl_tpu_torch.ops import fused_mlp as fm
@@ -1284,6 +1417,9 @@ def main() -> int:
 
     # ---- 2. build
     build_all([fs.substep_kernel, fm.fused_mlp_lib, fm.fused_tower_lib])
+    print("substep kernel occupancy: " + ", ".join(
+        f"{name} {n} blocks/SM x {threads} threads"
+        for name, (n, threads) in fs.substep_kernel.occupancy().items()))
 
     # ---- 3. B1 vs plain version at the main path's shapes
     env = TenAntEnv(device=dev, seed=0)
@@ -1303,7 +1439,7 @@ def main() -> int:
     ops_ms = per_ant * B / FP32_OPS_PER_S * 1e3
     bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
     print(f"  kernel {kernel_ms:.4f} ms (median of {KERNEL_REPS}), plain {plain_ms:.2f} ms "
-          f"(median of {PLAIN_REPS}); bound {bound_ms:.4f} ms by {bound_by}: "
+          f"(median of {PLAIN_REPS}); {fmt_bound(bound_ms, bound_by)}: "
           f"{bytes_moved / 1e6:.2f} MB -> {bytes_ms:.4f} ms, "
           f"{per_ant:.0f} ops/articulation x {B} -> {ops_ms:.4f} ms")
     del ops

@@ -3,7 +3,9 @@
 
 The flat articulation batch B = E * num_ants is laid out struct-of-arrays,
 [field, B], and each physics substep is ONE launch of the CUDA kernel in
-csrc/substep.cu (one articulation per thread).  Between launches the
+csrc/substep.cu (a team of four lanes per articulation, one per leg).  The
+kernel is compiled for the ant's tree (KERNEL_TREE); its wrappers refuse a
+table baked from another (`check_kernel_tree`).  Between launches the
 per-ant box wrenches are summed per env and the push-box (one free body per
 env) takes its own substep in plain PyTorch.  Only the foot sensors of the
 last substep are kept, as the reference does.
@@ -58,6 +60,46 @@ def unpack_dr(dr: torch.Tensor) -> dict:
     return out
 
 
+# the ant's tree as csrc/substep.cu compiles it (its constexpr PARENT,
+# POINT_START, CHAIN_MASK, BODY_OF_DOF and BODY_SENSOR)
+KERNEL_TREE = {
+    "parent": (-1, 0, 1, 0, 3, 0, 5, 0, 7),
+    "point_start": (0, 13, 16, 19, 22, 25, 28, 31, 34, 37),
+    "chain_mask": (1, 3, 7, 15, 31, 63, 127, 255, 319, 831, 1087, 3135, 4159, 12351),
+    "body_of_dof": (0, 0, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8),
+    "body_sensor": (-1, -1, 0, -1, 1, -1, 2, -1, 3),
+}
+
+
+def table_tree(c: sp.AntConsts) -> dict:
+    """The tree a baked table describes, in KERNEL_TREE's keys (the table's
+    own fields, and the plain version's parent and body_of_dof)."""
+    as_int = lambda xs: tuple(int(x) for x in xs)
+    tree = {k: as_int(c.f[k]) for k in ("point_start", "chain_mask", "body_sensor")}
+    tree["parent"] = as_int(c.f["parent"])
+    tree["body_of_dof"] = as_int(c.body_of_dof)
+    if as_int(c.parent) != tree["parent"]:
+        tree["parent"] = ("table", tree["parent"], "plain version", as_int(c.parent))
+    sensors = tuple(tree["body_sensor"][b] for b in c.point_body)
+    if sensors != as_int(c.point_sensor):
+        tree["body_sensor"] = ("per body", tree["body_sensor"], "per point", as_int(c.point_sensor))
+    return tree
+
+
+def check_kernel_tree(c: sp.AntConsts) -> None:
+    """Raise ValueError unless the table was baked from the tree the substep
+    kernel is compiled for.  The result is kept on the table, so a launch
+    pays for it once."""
+    if c._tree_checked:
+        return
+    got = table_tree(c)
+    bad = {k: got[k] for k in KERNEL_TREE if got[k] != KERNEL_TREE[k]}
+    if bad:
+        raise ValueError(f"the substep kernel is compiled for the ant's tree {KERNEL_TREE}; "
+                         f"this table differs in {bad}")
+    c._tree_checked = True
+
+
 def _check_operands(expect, dev):
     for name, (t, shape) in expect.items():
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() \
@@ -92,7 +134,11 @@ class SubstepKernel:
         "substep_table_len": ([_I], _I),
         "substep_launch": ([_P] + [_I] * 6 + [_P] * 11, _I),
         "debug_substep_launch": ([_P] + [_I] * 3 + [_P] * 9, _I),
+        "substep_threads_per_block": ([], _I),
+        "substep_blocks_per_sm": ([_I], _I),
     }
+    # the instantiations substep_blocks_per_sm numbers
+    INSTANTIATIONS = ("B1", "B1 legacy", "B1-DR", "B1-DR legacy", "B6")
 
     def __init__(self):
         self.launches = 0
@@ -111,6 +157,19 @@ class SubstepKernel:
             self._lib, self.build_result = lib, res
         return self._lib
 
+    def occupancy(self) -> dict:
+        """{instantiation: (resident blocks per SM, threads per block)} from
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor (needs the card)."""
+        lib = self.load()
+        threads = lib.substep_threads_per_block()
+        out = {}
+        for k, name in enumerate(self.INSTANTIATIONS):
+            n = lib.substep_blocks_per_sm(k)
+            if n < 0:
+                raise RuntimeError(f"occupancy query for {name} failed with CUDA error {-n}")
+            out[name] = (n, threads)
+        return out
+
     def __call__(self, c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel, dr=None):
         """c: the baked table (its legacy flag picks the instantiation);
         qpos [15,B], qvel [14,B], tau [8,B]; box_* [7|6, E] (E = B /
@@ -128,6 +187,7 @@ class SubstepKernel:
             raise ValueError(f"B={B} articulations is not E={E} envs x {num_ants} ants")
         lib = self.load()
         table = _device_table(lib, c, dev)
+        check_kernel_tree(c)
         qpos_out = torch.empty_like(qpos)
         qvel_out = torch.empty_like(qvel)
         wrench = torch.empty((6, B), dtype=torch.float32, device=dev)
@@ -171,6 +231,7 @@ class DebugSubstepKernel:
                              "table with ContactParams(beta=None)")
         lib = substep_kernel.load()
         table = _device_table(lib, c, dev)
+        check_kernel_tree(c)
         qpos_out = torch.empty_like(qpos)
         qvel_out = torch.empty_like(qvel)
         wrench = torch.empty((6, B), dtype=torch.float32, device=dev)

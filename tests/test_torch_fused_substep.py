@@ -292,3 +292,55 @@ def test_debug_kernel_rejects_bad_operands(cuda):
         fs.debug_substep_kernel(debug_fused.kernel_consts(sys, True, clamp=True),
                                 qpos, qvel, tau, bq, bv)
     assert fs.debug_substep_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_env,num_ants", [(4097, 10), (1, 1), (3, 1)])
+def test_kernel_tail_matches_plain_on_card(cuda, n_env, num_ants):
+    """B1 at B = 10 x 4097, 1 and 3, no multiple of a block's articulations:
+    lanes past B compute on the last articulation and store nothing."""
+    env = TenAntEnv(device=cuda)
+    c = env.substep_consts
+    qpos, qvel, tau, bq, bv = _states(env, n_env, 4, cuda)
+    B = n_env * num_ants
+    qpos, qvel, tau = (x[:, :B].contiguous() for x in (qpos, qvel, tau))
+    got = fs.substep_kernel(c, num_ants, qpos, qvel, tau, bq, bv)
+    torch.cuda.synchronize()
+    ref = fs.substep_plain(c, num_ants, qpos, qvel, tau, bq, bv)
+    assert [tuple(g.shape) for g in got] == [(15, B), (14, B), (6, B), (24, B)]
+    _assert_close_masked(got, ref, ["qpos", "qvel", "wrench", "sensors"], TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1024, 1, 37])
+def test_debug_kernel_at_its_shape_and_ragged_on_card(cuda, B):
+    """B6 at its TPU shape (B = 1024) and at sizes that end inside a block."""
+    env = TenAntEnv(device=cuda)
+    sys, hinge = env.spec.ant_sys, env.model.init_hinge
+    c = debug_fused.kernel_consts(sys, True, clamp=False)
+    ops = [x.t().contiguous() for x in debug_fused.make_states(sys, hinge, B, "chaotic", 5,
+                                                                cuda)]
+    got = fs.debug_substep_kernel(c, *ops)
+    torch.cuda.synchronize()
+    _assert_close_masked(got, fs.debug_substep_plain(c, *ops), ["qpos", "qvel", "wrench"], TOL)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_another_tree(cuda):
+    """A table baked from another tree raises in both wrappers before any
+    launch."""
+    env = TenAntEnv(device=cuda)
+    ops = _states(env, 2, 6, cuda)
+    other = (-1, 0, 1, 0, 3, 0, 5, 0, 5)
+    bad = dataclasses.replace(env.substep_consts, parent=other, _device_tables={})
+    sys, hinge = env.spec.ant_sys, env.model.init_hinge
+    c6 = debug_fused.kernel_consts(sys, True, clamp=False)
+    bad6 = dataclasses.replace(c6, parent=other, _device_tables={})
+    ops6 = [x.t().contiguous() for x in debug_fused.make_states(sys, hinge, 8, "chaotic", 0,
+                                                                 cuda)]
+    before = fs.substep_kernel.launches, fs.debug_substep_kernel.launches
+    with pytest.raises(ValueError, match="tree"):
+        fs.substep_kernel(bad, 10, *ops)
+    with pytest.raises(ValueError, match="tree"):
+        fs.debug_substep_kernel(bad6, *ops6)
+    assert (fs.substep_kernel.launches, fs.debug_substep_kernel.launches) == before
