@@ -2,10 +2,6 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-`python3 chip_smoke.py --substep-copies A.cu [B.cu ...]` instead times the
-package's substep kernel against development copies of csrc/substep.cu
-(`substep_copies`).
-
 Phases; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build the kernels from massive_marl_tpu_torch/ops/csrc/ (substep.cu:
@@ -108,7 +104,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -1276,120 +1271,6 @@ def marl_phase(dev):
     return main_counts, tower_counts, (runner, tower, trpo)
 
 
-def substep_copies(paths) -> int:
-    """`--substep-copies A.cu [B.cu ...]`: the package's substep kernel
-    (csrc/substep.cu) against development copies of that source, each built
-    with the package's nvcc flags, on the same inputs: B1 at E x A (box, no
-    box, the legacy branch, the DR operand on both branches) and B6 at B =
-    1024 and 40,960.  Prints each build's ptxas report and blocks per SM
-    (where the copy has the query), whether each copy gives the package's
-    bits, and each ms (median of KERNEL_REPS) in two rounds, the second in
-    reverse order.  A copy may change anything but the C interface."""
-    import ctypes
-    import torch
-    from massive_marl_tpu_torch.cli import debug_fused as df
-    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
-    from massive_marl_tpu_torch.ops import _build
-    from massive_marl_tpu_torch.ops import fused_substep as fs
-    from massive_marl_tpu_torch.phys import dr as drm
-    from massive_marl_tpu_torch.phys.engine import ContactParams
-    print(smi_line())
-    libs = {"package": fs.substep_kernel.load()}
-    logs = {"package": fs.substep_kernel.build_result.log}
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-
-    def build(path):
-        out = os.path.join(_build.BUILD_DIR, "copy_" + os.path.basename(path)[:-3] + ".so")
-        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
-                              capture_output=True, text=True)
-        logs[path] = proc.stdout + proc.stderr if proc.returncode == 0 else None
-        libs[path] = out
-
-    threads = [threading.Thread(target=build, args=(p,)) for p in paths]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for name in list(libs):
-        if logs[name] is None:
-            raise RuntimeError(f"nvcc failed on {name}")
-        if name != "package":
-            libs[name] = ctypes.CDLL(libs[name])
-        for fn, (argtypes, restype) in fs.SubstepKernel.signatures.items():
-            if hasattr(libs[name], fn):
-                getattr(libs[name], fn).argtypes = argtypes
-                getattr(libs[name], fn).restype = restype
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", logs[name])]
-        stack = [int(b) for b in re.findall(r"(\d+) bytes stack frame", logs[name])]
-        lib = libs[name]
-        occ = ([lib.substep_blocks_per_sm(k) for k in range(5)],
-               lib.substep_threads_per_block()) if hasattr(lib, "substep_blocks_per_sm") else None
-        print(f"{name}: registers {regs}, stack bytes {stack}, blocks/SM x threads {occ}")
-
-    dev = torch.device("cuda")
-    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
-
-    def b1(lib, c, ops, dr=None):
-        qpos, qvel, tau, bq, bv = ops
-        B = qpos.shape[1]
-        outs = [torch.empty_like(qpos), torch.empty_like(qvel),
-                torch.empty(6, B, device=dev), torch.empty(6 * 4, B, device=dev)]
-        t = c.device_table(dev)
-        err = lib.substep_launch(t.data_ptr(), t.numel(), c.P, A, B, bq.shape[1], int(c.legacy),
-                                 None if dr is None else dr.data_ptr(),
-                                 *[x.data_ptr() for x in ops], *[o.data_ptr() for o in outs],
-                                 stream())
-        if err:
-            raise RuntimeError(f"substep_launch: CUDA error {err}")
-        return outs
-
-    def b6(lib, c, ops):
-        B = ops[0].shape[1]
-        outs = [torch.empty_like(ops[0]), torch.empty_like(ops[1]), torch.empty(6, B, device=dev)]
-        t = c.device_table(dev)
-        err = lib.debug_substep_launch(t.data_ptr(), t.numel(), c.P, B,
-                                       *[x.data_ptr() for x in ops],
-                                       *[o.data_ptr() for o in outs], stream())
-        if err:
-            raise RuntimeError(f"debug_substep_launch: CUDA error {err}")
-        return outs
-
-    env = TenAntEnv(device=dev, seed=0)
-    ops = make_states(env, E, 1, dev)
-    g = torch.Generator(device=dev).manual_seed(4)
-    root = os.path.dirname(os.path.abspath(__file__))
-    dro = fs.pack_dr(drm.sample_dr(env.spec.ant_sys, tenant_dr_spec(root, True), (E, A), g))
-    c = env.substep_consts
-    nobox = fs.scene_consts(env.spec._replace(box_sys=None, box_half_extents=None))
-    leg = fs.scene_consts(env.spec._replace(contact=ContactParams(beta=None)))
-    sys_, hinge = env.spec.ant_sys, env.model.init_hinge
-    c6 = df.kernel_consts(sys_, True, clamp=False)
-    ops6 = {n: [x.t().contiguous() for x in df.make_states(sys_, hinge, n, "chaotic", 0, dev)]
-            for n in (1024, E * A)}
-    cases = {"B1": lambda lib: b1(lib, c, ops), "B1 no box": lambda lib: b1(lib, nobox, ops),
-             "B1 legacy": lambda lib: b1(lib, leg, ops),
-             "B1-DR": lambda lib: b1(lib, c, ops, dro),
-             "B1-DR legacy": lambda lib: b1(lib, leg, ops, dro),
-             "B6 1024": lambda lib: b6(lib, c6, ops6[1024]),
-             f"B6 {E * A}": lambda lib: b6(lib, c6, ops6[E * A])}
-    ref = {k: f(libs["package"]) for k, f in cases.items()}
-    same = lambda a, b: all(torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0))
-                            and torch.equal(torch.isnan(x), torch.isnan(y)) for x, y in zip(a, b))
-    for name in paths:
-        print(f"{name}: the package's bits in "
-              f"{[k for k, f in cases.items() if same(f(libs[name]), ref[k])]}")
-    names = list(libs)
-    ms = {n: {k: [] for k in cases} for n in names}
-    for order in (names, names[::-1]):
-        for n in order:
-            for k, f in cases.items():
-                ms[n][k].append(time_cuda_ms(lambda: f(libs[n]), KERNEL_REPS))
-    print(f"ms, median of {KERNEL_REPS} (round 1 / round 2):")
-    for n in names:
-        print(f"  {n}: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in ms[n].items()))
-    return 0
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1398,8 +1279,6 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    if sys.argv[1:2] == ["--substep-copies"]:
-        return substep_copies(sys.argv[2:])
     from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
     from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
     from massive_marl_tpu_torch.ops import fused_mlp as fm

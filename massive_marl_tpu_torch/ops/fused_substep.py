@@ -73,31 +73,25 @@ KERNEL_TREE = {
 
 def table_tree(c: sp.AntConsts) -> dict:
     """The tree a baked table describes, in KERNEL_TREE's keys (the table's
-    own fields, and the plain version's parent and body_of_dof)."""
+    own fields, and the plain version's body_of_dof)."""
     as_int = lambda xs: tuple(int(x) for x in xs)
-    tree = {k: as_int(c.f[k]) for k in ("point_start", "chain_mask", "body_sensor")}
-    tree["parent"] = as_int(c.f["parent"])
+    tree = {k: as_int(c.f[k]) for k in ("parent", "point_start", "chain_mask", "body_sensor")}
     tree["body_of_dof"] = as_int(c.body_of_dof)
-    if as_int(c.parent) != tree["parent"]:
-        tree["parent"] = ("table", tree["parent"], "plain version", as_int(c.parent))
-    sensors = tuple(tree["body_sensor"][b] for b in c.point_body)
-    if sensors != as_int(c.point_sensor):
-        tree["body_sensor"] = ("per body", tree["body_sensor"], "per point", as_int(c.point_sensor))
     return tree
 
 
 def check_kernel_tree(c: sp.AntConsts) -> None:
-    """Raise ValueError unless the table was baked from the tree the substep
-    kernel is compiled for.  The result is kept on the table, so a launch
-    pays for it once."""
-    if c._tree_checked:
-        return
-    got = table_tree(c)
-    bad = {k: got[k] for k in KERNEL_TREE if got[k] != KERNEL_TREE[k]}
+    """Raise ValueError unless the table (and the plain version's parent and
+    point_sensor beside it) was baked from the tree the substep kernel is
+    compiled for."""
+    bad = {k: v for k, v in table_tree(c).items() if v != KERNEL_TREE[k]}
+    if tuple(c.parent) != KERNEL_TREE["parent"]:
+        bad["parent of the plain version"] = tuple(c.parent)
+    if tuple(c.point_sensor) != tuple(KERNEL_TREE["body_sensor"][b] for b in c.point_body):
+        bad["point_sensor"] = tuple(c.point_sensor)
     if bad:
         raise ValueError(f"the substep kernel is compiled for the ant's tree {KERNEL_TREE}; "
                          f"this table differs in {bad}")
-    c._tree_checked = True
 
 
 def _check_operands(expect, dev):
@@ -112,6 +106,11 @@ def _check_operands(expect, dev):
 
 
 def _device_table(lib, c: sp.AntConsts, dev):
+    """The kernel's table on dev.  Its tree is checked at its first upload
+    to dev (AntConsts.device_table copies once per device), so a launch
+    pays for the check once."""
+    if str(dev) not in c._device_tables:
+        check_kernel_tree(c)
     table = c.device_table(dev)
     if lib.substep_table_len(c.P) != table.numel():
         raise ValueError(f"constant table has {table.numel()} floats, the kernel "
@@ -187,7 +186,6 @@ class SubstepKernel:
             raise ValueError(f"B={B} articulations is not E={E} envs x {num_ants} ants")
         lib = self.load()
         table = _device_table(lib, c, dev)
-        check_kernel_tree(c)
         qpos_out = torch.empty_like(qpos)
         qvel_out = torch.empty_like(qvel)
         wrench = torch.empty((6, B), dtype=torch.float32, device=dev)
@@ -231,7 +229,6 @@ class DebugSubstepKernel:
                              "table with ContactParams(beta=None)")
         lib = substep_kernel.load()
         table = _device_table(lib, c, dev)
-        check_kernel_tree(c)
         qpos_out = torch.empty_like(qpos)
         qvel_out = torch.empty_like(qvel)
         wrench = torch.empty((6, B), dtype=torch.float32, device=dev)

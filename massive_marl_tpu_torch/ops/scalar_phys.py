@@ -109,9 +109,6 @@ class AntConsts:
     body_of_dof: Tuple[int, ...]
     chains: Tuple[Tuple[int, ...], ...]
     _device_tables: dict = dataclasses.field(default_factory=dict, repr=False)
-    # set by fused_substep.check_kernel_tree once the tree is found to be the
-    # kernel's; not copied by dataclasses.replace
-    _tree_checked: bool = dataclasses.field(default=False, init=False, repr=False, compare=False)
 
     def device_table(self, device) -> torch.Tensor:
         """The table on `device`, copied once per device."""

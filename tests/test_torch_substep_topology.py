@@ -11,8 +11,10 @@ on the card is in test_torch_fused_substep.py.
 import dataclasses
 import pathlib
 import re
+import types
 
 import pytest
+import torch
 
 from massive_marl_tpu_torch.cli import debug_fused
 from massive_marl_tpu_torch.envs.one_ant import OneAntEnv
@@ -62,7 +64,6 @@ def test_baked_tables_carry_the_compiled_tree(ten_ant, table):
     assert c.P == _compiled_tree()["point_start"][-1] == 37
     assert fs.table_tree(c) == _compiled_tree()
     fs.check_kernel_tree(c)
-    assert c._tree_checked
 
 
 def _altered(c, field, k, value):
@@ -83,13 +84,20 @@ def _altered(c, field, k, value):
 @pytest.mark.parametrize("field,k,value", [("parent", 4, 1), ("point_start", 2, 17),
                                            ("chain_mask", 9, 63 | 256), ("body_sensor", 4, -1)])
 def test_a_table_with_another_tree_is_refused(ten_ant, field, k, value):
-    c = ten_ant.substep_consts
-    fs.check_kernel_tree(c)
+    """Refused by the check, and by the wrappers' table upload, which checks
+    a table at its first upload to a device and uploads nothing it refuses
+    (the launch count is held on the card in test_torch_fused_substep.py)."""
+    c = dataclasses.replace(ten_ant.substep_consts, _device_tables={})
+    lib = types.SimpleNamespace(substep_table_len=lambda P: c.table.numel())
+    cpu = torch.device("cpu")
+    assert fs._device_table(lib, c, cpu) is fs._device_table(lib, c, cpu)
+    assert list(c._device_tables) == ["cpu"]
     bad = _altered(c, field, k, value)
-    assert not bad._tree_checked
     with pytest.raises(ValueError, match=field):
         fs.check_kernel_tree(bad)
-    assert not bad._tree_checked and c._tree_checked
+    with pytest.raises(ValueError, match=field):
+        fs._device_table(lib, bad, cpu)
+    assert bad._device_tables == {}
 
 
 def test_plain_tree_mismatch_is_refused(ten_ant):
@@ -100,5 +108,10 @@ def test_plain_tree_mismatch_is_refused(ten_ant):
         fs.check_kernel_tree(bad)
     bad = dataclasses.replace(c, parent=(-1, 0, 1, 0, 3, 0, 5, 0, 5), _device_tables={})
     with pytest.raises(ValueError, match="parent"):
+        fs.check_kernel_tree(bad)
+    sensors = list(c.point_sensor)
+    sensors[-1] = -1
+    bad = dataclasses.replace(c, point_sensor=tuple(sensors), _device_tables={})
+    with pytest.raises(ValueError, match="point_sensor"):
         fs.check_kernel_tree(bad)
 
