@@ -74,6 +74,17 @@ Phases; any failure raises and the script exits non-zero:
      other B1 launch per iteration, counted from 0 before the phase; finite
      losses; rollout ms, update ms and env-steps/s; the setup_only mass
      kept and the damping re-drawn;
+  5e. the trainer's files on the card, through cli.train.main at E=4096:
+     TenAnt + PPO for 2 iterations with save_interval 1 (model_1.ckpt,
+     model_2.ckpt, metrics.csv and an event file; each checkpoint's size,
+     the save's and restore's ms), --model_dir latest restoring that state
+     bit for bit, and --test --headless --episode_length 100 (a finite
+     mean return, exactly 300 B1 launches counted from 0 before the call);
+     TenAnt + MAPPO the same with 1 iteration (24 B1, 300 B2, 300 B3;
+     marl_1.ckpt; runner.eval() through --test, 300 B1); --test without
+     --headless and VIEWER_STEPS=50 (viewer_TenAnt.html); --random_actions
+     --bench_len 3 (env-steps/s per report; exactly (1 + 3) x 256 x 3 B1
+     launches).  Its files go under build/smoke_5e/, removed at its end;
   6. TenAnt + MAPPO at full width (MarlConfig(): N=10, hidden 512, 3 fused
      blocks per tower, episode_length 8, 5 epochs, E=4096, the sequential
      schedule): 1 warm-up iteration through MarlRunner.run and 3 timed
@@ -567,6 +578,167 @@ def cli_dr_phase(fs, root, dev):
           f"setup_only mass of every env unchanged; contact stiffness "
           f"{env.spec.contact.stiffness} from cfg/TenAnt.yaml")
     return fs.substep_kernel.dr_launches, ppo
+
+
+def trainer_files_phase(fs, root, dev):
+    """Phase 5e, the trainer's files on the card, all through cli.train.main
+    at E envs with fixed seeds, in build/smoke_5e/ (emptied first):
+    (a) TenAnt + PPO, 2 iterations with a --cfg_train copy of
+    cfg/ppo/config.yaml whose save_interval is 1: model_1.ckpt,
+    model_2.ckpt, metrics.csv and an event file; each checkpoint's size and
+    the save's and restore's ms (median of 3, synchronized); (b) --model_dir
+    latest: parameters, Adam moments, count, lr and iteration equal (a)'s
+    bit for bit; (c) --test --headless --episode_length 100: a finite mean
+    return and exactly 100 x 3 B1 launches, counted from 0 before the call;
+    (d) TenAnt + MAPPO, the same: 1 iteration (24 B1, 300 B2, 300 B3)
+    writing marl_1.ckpt, restored bit for bit, and runner.eval() through
+    --test at --episode_length 100 (100 x 3 B1); (e) --test without
+    --headless and VIEWER_STEPS=50: viewer_TenAnt.html; (f) --random_actions
+    --bench_len 3: env-steps/s per report and exactly (1 + 3) x 256 x 3 B1
+    launches.  The directory is removed at the end."""
+    import shutil
+    import torch
+    from massive_marl_tpu_torch.cli import train as cli
+    from massive_marl_tpu_torch.ops import fused_mlp as fm
+    from massive_marl_tpu_torch.utils.tree import tree_leaves
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "smoke_5e")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfgs = {}
+    for algo, key in (("ppo", "  save_interval: 1000\n"), ("mappo", "save_interval: 200\n")):
+        with open(os.path.join(root, "cfg", algo, "config.yaml")) as fh:
+            text = fh.read()
+        if text.count(key) != 1:
+            raise AssertionError(f"cfg/{algo}/config.yaml: no `{key.strip()}` line")
+        cfgs[algo] = os.path.join(work, f"{algo}.yaml")
+        with open(cfgs[algo], "w") as fh:
+            fh.write(text.replace(key, key.split(":")[0] + ": 1\n"))
+
+    def run(algo, *extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main(["--task", "TenAnt", "--algo", algo, "--num_envs", str(E), "--seed", "0",
+                        "--logdir", os.path.join(work, algo), "--cfg_train", cfgs[algo], *extra])
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def ms3(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    def same(a, b, what):
+        if len(a) != len(b) or not all(x.dtype == y.dtype and torch.equal(x, y)
+                                       for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: the restored state differs from the saved one")
+
+    def evaluate(algo, label):
+        fs.substep_kernel.launches = 0
+        tested, secs = run(algo, "--test", "--headless", "--episode_length", "100",
+                           "--model_dir", "latest")
+        n = fs.substep_kernel.launches
+        if not math.isfinite(tested.last_eval) or n != 100 * 3:
+            raise AssertionError(f"{label} eval: return {tested.last_eval}, {n} B1 launches, "
+                                 f"expected 300")
+        print(f"  {label} eval (--test --headless, 100 steps): mean return "
+              f"{tested.last_eval:.3f}, {n} B1 launches, main() {secs:.2f} s")
+
+    # (a) PPO writes its files; (b) resume
+    ppo, secs = run("ppo", "--max_iterations", "2")
+    d = os.path.join(work, "ppo", "seed0")
+    files = sorted(os.listdir(d))
+    if not ({"model_1.ckpt", "model_2.ckpt", "metrics.csv"} <= set(files)
+            and any(f.startswith("events.out.tfevents") for f in files)):
+        raise AssertionError(f"PPO logdir holds {files}")
+    path = os.path.join(d, "model_2.ckpt")
+    sizes = {f: os.path.getsize(os.path.join(d, f)) for f in ("model_1.ckpt", "model_2.ckpt")}
+    save_ms = ms3(lambda: ppo.save(os.path.join(work, "ppo_save.ckpt")))
+    n_params = sum(p.numel() for p in ppo.model.parameters())
+    back, back_secs = run("ppo", "--max_iterations", "2", "--model_dir", "latest")
+    state = lambda t: ([p.detach() for p in t.model.parameters()] + t.state.opt.mu
+                       + t.state.opt.nu + [t.state.lr])
+    same(state(ppo), state(back), "PPO --model_dir latest")
+    if (back.state.opt.count, back.state.iteration) != (ppo.state.opt.count, 2):
+        raise AssertionError("PPO resume: Adam count or iteration differs")
+    load_ms = ms3(lambda: back.load(path))
+    print(f"  PPO: 2 iterations in {secs:.2f} s wrote {', '.join(files)}; checkpoint sizes "
+          + ", ".join(f"{f} {b} B" for f, b in sizes.items())
+          + f" ({n_params} parameters); save {save_ms:.1f} ms, restore {load_ms:.1f} ms "
+          f"(median of 3); --model_dir latest restored parameters, Adam moments, count "
+          f"{back.state.opt.count}, lr and iteration {back.state.iteration} bit for bit "
+          f"(main() {back_secs:.2f} s)")
+    # (c) evaluate
+    evaluate("ppo", "PPO")
+    del ppo, back
+
+    # (d) MAPPO: one iteration, restore, eval
+    counters = (fs.substep_kernel, fm.fwd_kernel, fm.bwd_kernel)
+    for k in counters:
+        k.launches = 0
+    runner, secs = run("mappo", "--max_iterations", "1")
+    launches = tuple(k.launches for k in counters)
+    if launches != (24, 300, 300):
+        raise AssertionError(f"MAPPO iteration: B1/B2/B3 launches {launches}, expected "
+                             f"(24, 300, 300)")
+    md = os.path.join(work, "mappo", "seed0")
+    mpath = os.path.join(md, "marl_1.ckpt")
+    if not os.path.exists(mpath):
+        raise AssertionError(f"MAPPO logdir holds {sorted(os.listdir(md))}")
+    msave_ms = ms3(lambda: runner.save(os.path.join(work, "mappo_save.ckpt")))
+
+    def marl_state(r):
+        st = r.state
+        return (tree_leaves(st.actor_params) + tree_leaves(st.critic_params) + st.actor_opt.mu
+                + st.actor_opt.nu + st.critic_opt.mu + st.critic_opt.nu
+                + [st.vnorm.mean, st.vnorm.mean_sq, st.vnorm.debias])
+    mback, _ = run("mappo", "--max_iterations", "1", "--model_dir", "latest")
+    same(marl_state(runner), marl_state(mback), "MAPPO --model_dir latest")
+    if (mback.state.actor_opt.count, mback.state.iteration) != (runner.state.actor_opt.count, 1):
+        raise AssertionError("MAPPO resume: Adam counts or iteration differ")
+    mload_ms = ms3(lambda: mback.restore(mpath))
+    print(f"  MAPPO: 1 iteration in {secs:.2f} s (B1/B2/B3 launches {launches}); marl_1.ckpt "
+          f"{os.path.getsize(mpath)} B; save {msave_ms:.1f} ms, restore {mload_ms:.1f} ms "
+          f"(median of 3); restored bit for bit")
+    evaluate("mappo", "MAPPO")
+    del runner, mback
+
+    # (e) the viewer
+    os.environ["VIEWER_STEPS"] = "50"
+    try:
+        _, secs = run("ppo", "--test", "--episode_length", "100", "--model_dir", "latest")
+    finally:
+        os.environ.pop("VIEWER_STEPS")
+    html = os.path.join(d, "viewer_TenAnt.html")
+    if not os.path.exists(html):
+        raise AssertionError("--test without --headless wrote no viewer_TenAnt.html")
+    print(f"  viewer: {html} ({os.path.getsize(html)} B, 50 steps), main() {secs:.2f} s")
+
+    # (f) random actions
+    bench = os.path.join(work, "bench.jsonl")
+    fs.substep_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = cli.main(["--task", "TenAnt", "--num_envs", str(E), "--seed", "0", "--random_actions",
+                     "--bench_len", "3", "--bench_file", bench])
+    secs = time.perf_counter() - t0
+    n_bench = fs.substep_kernel.launches
+    want = (1 + 3) * cli.BENCH_CHUNK * 3
+    with open(bench) as fh:
+        lines = [json.loads(x) for x in fh]
+    if n_bench != want or len(recs) != 3 or lines != recs:
+        raise AssertionError(f"--random_actions: {n_bench} B1 launches (expected {want}), "
+                             f"{len(recs)} reports, {len(lines)} lines in --bench_file")
+    print(f"  --random_actions (TenAnt, E={E}, {cli.BENCH_CHUNK} steps a report): "
+          + ", ".join(f"{r['env_steps_per_s']:.1f}" for r in recs)
+          + f" env-steps/s; {n_bench} B1 launches; main() {secs:.2f} s")
+    shutil.rmtree(work)     # ~0.5 GB of checkpoints
+    print(f"phase 5e: {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_ppo(ppo, it, m, launches, want, width):
@@ -1400,6 +1572,11 @@ def main() -> int:
     # ---- 5d. the slice's path: TenAnt + PPO with domain randomization through the CLI
     print("TenAnt+PPO --randomize through cli.train (cfg/TenAnt.yaml, cfg/ppo/config.yaml):")
     dr_launches, ppo_dr = cli_dr_phase(fs, root, dev)
+    torch.cuda.empty_cache()
+
+    # ---- 5e. the trainer's files on the card: checkpoints, logs, eval, viewer, random actions
+    print("the trainer's files through cli.train (checkpoints, logs, evaluation):")
+    trainer_files_phase(fs, root, dev)
     torch.cuda.empty_cache()
 
     # ---- 6. TenAnt + MAPPO (then stacked, HAPPO, FUSED_TOWER=1, HATRPO) at full width

@@ -36,11 +36,17 @@ Random numbers come from the runner's torch.Generator, so a run does not
 replay the reference's threefry stream; the tests feed both packages the
 same trajectory and, for HAPPO and HATRPO, the same agent permutation.
 
-Not ported yet, and each raises NotImplementedError: a device mesh, eval,
-save/restore and logging to a directory (ROADMAP A.8d, A.8f).
+With a `log_dir`, `run` logs train/*, perf/fps and the episode returns
+(utils/logging.Writer) and saves `marl_<it>.ckpt` every `save_interval`
+iterations; a checkpoint is the JAX runner's own file
+(utils/bridge.marl_state_to_flax), in the structure of cfg.optimizer, so
+either package restores the other's.  `eval` runs deterministic episodes
+in dedicated envs (every `eval_interval` iterations under `use_eval`).  A
+device mesh is not ported yet and raises NotImplementedError (ROADMAP A.9).
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -50,7 +56,10 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos.marl import fused_nets, nets
+from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
 from massive_marl_tpu_torch.ops.fused_mlp import feature_norm
+from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
+from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 from massive_marl_tpu_torch.wrap.vec_task import split_multi_agent_obs
 
@@ -295,10 +304,7 @@ class MarlRunner:
             raise ValueError(f"env is on {env.device}, runner on {self.device}")
         if mesh is not None:
             raise NotImplementedError("multi-device MARL updates are not ported yet "
-                                      "(ROADMAP A.8f)")
-        if log_dir is not None:
-            raise NotImplementedError("logging and checkpoints to a directory are not "
-                                      "ported yet (ROADMAP A.8d)")
+                                      "(ROADMAP A.9)")
         c = self.cfg = cfg or MarlConfig()
         if c.algorithm_name not in ("mappo", "ippo", "happo", "hatrpo"):
             raise ValueError(f"unknown MARL algorithm {c.algorithm_name!r}")
@@ -314,6 +320,7 @@ class MarlRunner:
         self.env = env
         self.num_envs = num_envs
         self.seed = seed
+        self.log_dir = log_dir
         self.print_log = print_log
         self.N = env.num_agents
         self.act_dim = env.num_actions
@@ -785,26 +792,98 @@ class MarlRunner:
         n_iter = max(1, int((num_env_steps or self.cfg.num_env_steps) // steps_per_iter))
         if self.state is None:
             self.init_state()
+        writer = Writer(self.log_dir) if self.log_dir else None
+        name = self.cfg.algorithm_name
         for it in range(self.state.iteration, n_iter):
             t0 = time.perf_counter()
             metrics = self.train_iter()
             if it % self.cfg.log_interval == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = fetch_metrics(metrics)
                 m["fps"] = steps_per_iter / (time.perf_counter() - t0)
                 self.last_metrics = m
+                if writer:
+                    writer.add_scalar("train/mean_reward", m["mean_reward"], it)
+                    writer.add_scalar("train/value_loss", m["value_loss"], it)
+                    writer.add_scalar("train/policy_loss", m["policy_loss"], it)
+                    writer.add_scalar("perf/fps", m["fps"], it)
+                    if m["episodes_done"] > 0:
+                        writer.add_scalar("train_episode_rewards", m["episode_rewards"],
+                                          it * steps_per_iter)
                 if self.print_log:
-                    print(f"[{self.cfg.algorithm_name}] it {it}/{n_iter} "
+                    print(f"[{name}] it {it}/{n_iter} "
                           f"rew/step {m['mean_reward']:.3f} vloss {m['value_loss']:.3f} "
                           f"fps {m['fps']:.0f}", flush=True)
             if self.cfg.use_eval and self.cfg.eval_interval and it % self.cfg.eval_interval == 0:
-                self.eval()
+                eval_rew = self.eval()
+                if writer:
+                    writer.add_scalar("eval/mean_episode_reward", eval_rew, it)
+                if self.print_log:
+                    print(f"[{name}] eval at it {it}: episode return {eval_rew:.3f}", flush=True)
+            if self.log_dir and self.cfg.save_interval and (it + 1) % self.cfg.save_interval == 0:
+                self.save(os.path.join(self.log_dir, f"marl_{it + 1}.ckpt"))
+        if writer:
+            writer.close()
         return self.state
 
     def eval(self, n_episodes: int | None = None, deterministic: bool = True):
-        raise NotImplementedError("MARL eval is not ported yet (ROADMAP A.8d)")
+        """Deterministic episodes in dedicated envs (JAX runner.py:1281-1336):
+        E = min(n_episodes, num_envs) envs reset from a stream seeded from
+        seed + 10_000 and the iteration, every agent acting with its clipped
+        mean for max_episode_length steps; returns the mean over the envs
+        of the team reward summed until each env's first done."""
+        if self.state is None:
+            self.init_state()
+        cfg, ap = self.cfg, self.state.actor_params
+        E = max(1, min(n_episodes or cfg.eval_episodes, self.num_envs))
+
+        def policy(obs_buf):
+            obs, _ = self._agent_views(torch.clamp(obs_buf, -cfg.clip_obs, cfg.clip_obs))
+            mean, _ = self.actor.apply(ap, obs)
+            return torch.clamp(mean, -cfg.clip_actions, cfg.clip_actions) \
+                .transpose(0, 1).reshape(E, -1)
+
+        return evaluate_episodes(self.env, E, policy,
+                                 eval_generator(self.seed, self.device, self.state.iteration))
 
     def save(self, path: str):
-        raise NotImplementedError("MARL checkpoints are not ported yet (ROADMAP A.8d)")
+        """Parameters, optimizer states, value normalizer and iteration (the
+        JAX runner's file, flax msgpack)."""
+        tree = checkpoint.to_host(bridge.marl_state_to_flax(self.cfg, self.state))
+        checkpoint.atomic_write_bytes(path, msgpack_lite.packb(tree))
 
     def restore(self, path: str):
-        raise NotImplementedError("MARL checkpoints are not ported yet (ROADMAP A.8d)")
+        """Restore from a file of either package; a file written under the
+        other cfg.optimizer ('adam' vs 'fused_adam', or another optax chain)
+        raises ValueError, as in the JAX runner."""
+        if self.state is None:
+            self.init_state()
+        st = self.state
+        try:
+            r = bridge.marl_state_from_flax(self.cfg, checkpoint.load_tree(path))
+            ap = checkpoint.restore_into(st.actor_params, r["actor_params"])
+            cp = checkpoint.restore_into(st.critic_params, r["critic_params"])
+            opts = [self._restored_opt(params, opt, r[key]) for params, opt, key in
+                    ((st.actor_params, st.actor_opt, "actor_opt"),
+                     (st.critic_params, st.critic_opt, "critic_opt"))]
+            vn = checkpoint.restore_into(
+                {"mean": st.vnorm.mean, "mean_sq": st.vnorm.mean_sq, "debias": st.vnorm.debias},
+                r["vnorm"])
+        except (ValueError, KeyError) as e:
+            raise ValueError(
+                f"checkpoint {path} does not match this runner's state. If it was saved "
+                f"under a different cfg.optimizer ('adam' vs 'fused_adam') or optimizer "
+                f"chain, restore with the setting it was saved with. Cause: {e}") from e
+        st.actor_params, st.critic_params = ap, cp
+        st.actor_opt, st.critic_opt = opts
+        st.vnorm = nets.ValueNorm(beta=st.vnorm.beta, **vn)
+        st.iteration = r["iteration"]
+
+    @staticmethod
+    def _restored_opt(params, opt: AdamState, restored) -> AdamState:
+        mu, nu, count = restored
+        if len(count) != len(opt.count):
+            raise ValueError(f"checkpoint has {len(count)} agents' counts, the runner "
+                             f"{len(opt.count)}")
+        moments = [tree_leaves(checkpoint.restore_into(tree_unflatten(params, cur), new))
+                   for cur, new in ((opt.mu, mu), (opt.nu, nu))]
+        return AdamState(mu=moments[0], nu=moments[1], count=count)

@@ -15,10 +15,14 @@ adaptive-KL step size.  Semantics kept from the reference:
   * the optimizer: global-norm clipping to 1.0, then Adam (b1 0.9, b2 0.999,
     eps 1e-8) scaled by the adaptive lr.
 The trajectory dict has the reference's layout ([T, E, ...] for obs,
-actions, logp, value, mean, reward, done).
+actions, logp, value, mean, reward, done).  With a `log_dir`, `run` logs the
+reference's tags (utils/logging.Writer) and saves `model_<it>.ckpt` every
+`save_interval` iterations; a checkpoint is the JAX trainer's own file
+(utils/bridge.ppo_state_to_flax), so either package restores the other's.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List
@@ -27,6 +31,8 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos import nets
+from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
+from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 
 
 @dataclass
@@ -49,7 +55,7 @@ class PPOConfig:
     clip_obs: float = 5.0
     clip_actions: float = 1.0
     max_iterations: int = 6500
-    save_interval: int = 1000       # read once checkpoints are ported
+    save_interval: int = 1000
     use_clipped_value_loss: bool = True
 
     @classmethod
@@ -100,7 +106,8 @@ class PPO:
     """PPO(env, num_envs, cfg).run(max_iterations)."""
 
     def __init__(self, env, num_envs: int, cfg: PPOConfig | None = None,
-                 seed: int = 0, device=None, print_log: bool = True):
+                 seed: int = 0, log_dir: str | None = None, device=None,
+                 print_log: bool = True):
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, trainer on {self.device}")
@@ -110,6 +117,7 @@ class PPO:
         self.env = env
         self.num_envs = num_envs
         self.cfg = cfg or PPOConfig()
+        self.log_dir = log_dir
         self.print_log = print_log
         self.act_dim = env.num_actions * env.num_agents
         self.obs_dim = env.num_obs
@@ -262,16 +270,66 @@ class PPO:
         n_iter = num_learning_iterations or self.cfg.max_iterations
         if self.state is None:
             self.init_state()
+        writer = Writer(self.log_dir) if self.log_dir else None
         steps_per_iter = self.cfg.nsteps * self.num_envs
         for it in range(self.state.iteration, n_iter):
             t0 = time.perf_counter()
             metrics = self.train_iter()
             if it % log_interval == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = fetch_metrics(metrics)
                 m["fps"] = steps_per_iter / (time.perf_counter() - t0)
                 self.last_metrics = m
+                if writer:
+                    writer.add_scalar("Train2/mean_reward/step", m["mean_reward"], it)
+                    writer.add_scalar("Loss/value_function", m["mean_value_loss"], it)
+                    writer.add_scalar("Loss/surrogate", m["mean_surrogate_loss"], it)
+                    writer.add_scalar("Policy/mean_noise_std", m["mean_noise_std"], it)
+                    writer.add_scalar("Perf/fps", m["fps"], it)
                 if self.print_log:
                     print(f"it {it}: rew/step {m['mean_reward']:.3f} vloss {m['mean_value_loss']:.3f} "
                           f"std {m['mean_noise_std']:.2f} lr {m['lr']:.2e} fps {m['fps']:.0f}",
                           flush=True)
+            if self.log_dir and self.cfg.save_interval and (it + 1) % self.cfg.save_interval == 0:
+                self.save(os.path.join(self.log_dir, f"model_{it + 1}.ckpt"))
+        if writer:
+            writer.close()
         return self.state
+
+    # ------------------------------------------------------------- checkpoint
+    def save(self, path: str):
+        """The full train state: parameters, Adam moments and count, lr and
+        iteration (the JAX package's file, flax msgpack)."""
+        st = self.state
+        names = [n for n, _ in self.model.named_parameters()]
+        tree = bridge.ppo_state_to_flax(names, list(self.model.parameters()), st.opt.mu,
+                                        st.opt.nu, st.opt.count, st.lr, st.iteration)
+        checkpoint.atomic_write_bytes(path, msgpack_lite.packb(checkpoint.to_host(tree)))
+
+    def load(self, path: str):
+        """Restore parameters, Adam moments, lr and iteration from a file of
+        either package; the env state is a fresh reset, as in the JAX
+        trainer."""
+        if self.state is None:
+            self.init_state()
+        params, mu, nu, count, lr, iteration = bridge.ppo_state_from_flax(
+            checkpoint.load_tree(path))
+        names = [n for n, _ in self.model.named_parameters()]
+        restored = [checkpoint.restore_into(dict(self.model.named_parameters()), d)
+                    for d in (params, mu, nu)]
+        with torch.no_grad():
+            for p, name in zip(self.model.parameters(), names):
+                p.copy_(restored[0][name])
+        self.state.opt = AdamState(mu=[restored[1][n] for n in names],
+                                   nu=[restored[2][n] for n in names], count=count)
+        self.state.lr = lr.to(self.device)
+        self.state.iteration = iteration
+
+    def test(self, path: str):
+        self.load(path)
+
+    # -------------------------------------------------------------- inference
+    @torch.no_grad()
+    def act_inference(self, obs):
+        """The policy's mean action on obs clipped to +-clip_obs."""
+        mean, _, _ = self.model(torch.clamp(obs, -self.cfg.clip_obs, self.cfg.clip_obs))
+        return mean

@@ -8,8 +8,9 @@ and obs / reward / done are computed on the result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -100,3 +101,41 @@ def select_tree(pred: torch.Tensor, a, b):
     if isinstance(a, tuple):
         return type(a)(select_tree(pred, x, y) for x, y in zip(a, b))
     raise TypeError(f"select_tree: unsupported leaf {type(a).__name__}")
+
+
+@contextlib.contextmanager
+def env_generator(env, generator: torch.Generator):
+    """Run the block with `generator` as env's random stream (its resets,
+    auto-resets and DR noise), then give env back its own."""
+    own = env.generator
+    env.generator = generator
+    try:
+        yield env
+    finally:
+        env.generator = own
+
+
+def eval_generator(seed: int, device, iteration: int | None = None) -> torch.Generator:
+    """The evaluation stream: seeded from seed + 10_000 and, for periodic
+    evaluation, the training iteration, so successive evaluations start
+    from fresh states and none disturbs the training envs' stream."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 10_000 if iteration is None else ((seed + 10_000) << 32) + iteration)
+    return g
+
+
+@torch.no_grad()
+def evaluate_episodes(env, num_envs: int, policy: Callable, generator: torch.Generator) -> float:
+    """Mean return of one episode in each of `num_envs` dedicated envs,
+    reset from `generator` and stepped `env.max_episode_length` times with
+    actions = policy(obs): each env's reward is summed until its first
+    `done`."""
+    with env_generator(env, generator):
+        state = env.reset(num_envs)
+        ret = torch.zeros(num_envs, device=state.obs.device)
+        alive = torch.ones(num_envs, dtype=torch.bool, device=state.obs.device)
+        for _ in range(int(env.max_episode_length)):
+            state = env.step_batch(state, policy(state.obs))
+            ret = ret + torch.where(alive, state.reward, 0.0)
+            alive = alive & ~state.done
+    return float(ret.mean())

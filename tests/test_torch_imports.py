@@ -1,12 +1,12 @@
 """The port and its chip smoke script import nothing of JAX, flax, optax,
-PyYAML or the JAX package (the GPU host has none of them)."""
+PyYAML, msgpack or the JAX package (the GPU host has none of them)."""
 import ast
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "massive_marl_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "massive_marl_tpu"}
 FILES = sorted((ROOT / "massive_marl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -39,9 +39,17 @@ def test_scan_sees_the_whole_port():
                  "massive_marl_tpu_torch/algos/marl/fused_nets.py",
                  "massive_marl_tpu_torch/algos/marl/runner.py",
                  "massive_marl_tpu_torch/wrap/vec_task.py",
-                 "massive_marl_tpu_torch/utils/tree.py"):
+                 "massive_marl_tpu_torch/utils/tree.py",
+                 "massive_marl_tpu_torch/utils/msgpack_lite.py",
+                 "massive_marl_tpu_torch/utils/checkpoint.py",
+                 "massive_marl_tpu_torch/utils/bridge.py",
+                 "massive_marl_tpu_torch/utils/logging.py",
+                 "massive_marl_tpu_torch/utils/viewer.py",
+                 "massive_marl_tpu_torch/utils/registry.py",
+                 "massive_marl_tpu_torch/utils/config.py",
+                 "massive_marl_tpu_torch/native/__init__.py"):
         assert must in names
     tree = ast.parse("import jax.numpy as jnp\nfrom massive_marl_tpu.phys import mjcf\n"
-                     "import importlib\nimportlib.import_module('flax')\n")
+                     "import importlib\nimportlib.import_module('flax')\nimport msgpack\n")
     assert sorted(m.split(".")[0] for m in imported_modules(tree)) == \
-        ["flax", "importlib", "jax", "massive_marl_tpu"]
+        ["flax", "importlib", "jax", "massive_marl_tpu", "msgpack"]
