@@ -85,6 +85,22 @@ Phases; any failure raises and the script exits non-zero:
      --headless and VIEWER_STEPS=50 (viewer_TenAnt.html); --random_actions
      --bench_len 3 (env-steps/s per report; exactly (1 + 3) x 256 x 3 B1
      launches).  Its files go under build/smoke_5e/, removed at its end;
+  5f. the single-agent zoo and the other tasks, through cli.train.main
+     from cfg/: TenAnt + TRPO at E=4096 (the YAML's 1024-1024-512), 2
+     iterations with exactly 24 B1 launches, 11 Fisher-vector products and
+     1..10 line-search candidates each, rollout ms, update ms and
+     env-steps/s; TenAnt + SAC (6 iterations), TD3 and DDPG (10 each) at the
+     YAMLs' configuration (numEnvs 128): 24 B1 per iteration, the
+     collect-only warm-up (4 iterations for SAC, 8 for TD3/DDPG), then SAC
+     32 and TD3/DDPG 160 gradient steps per iteration (TD3's pi steps half
+     of them), the ring's device bytes, a finite q_loss; SAC again with
+     --model_dir latest --test --headless: params and target_params bit for
+     bit, 300 B1; MultiAntCircle and MultiIngenuity at E=4096, one MAPPO
+     iteration (B2/B3 launches as its update runs them, no B1) and one PPO
+     iteration each, finite rewards and observations on the card.  Its
+     files go under build/smoke_5f/, removed at its end; phase 4 holds
+     B2/B3 at the new tasks' layer-0 widths (38, 76, 13, 52 padded to 128)
+     as well;
   6. TenAnt + MAPPO at full width (MarlConfig(): N=10, hidden 512, 3 fused
      blocks per tower, episode_length 8, 5 epochs, E=4096, the sequential
      schedule): 1 warm-up iteration through MarlRunner.run and 3 timed
@@ -101,8 +117,9 @@ Phases; any failure raises and the script exits non-zero:
      allows; and one HATRPO iteration with FUSED_TOWER=1 (30 B2 from the
      linearizations, no B3, B4/B5 as counted);
   7. one PPO, one PPO --randomize (the CLI's trainer), one PPO array-path,
-     one OneAnt PPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1
-     iteration under torch.profiler: device time by kernel group, the
+     one TRPO, one SAC and one TD3 training iteration (E=128), one OneAnt
+     PPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1 iteration under
+     torch.profiler: device time by kernel group, the
      device's busy share (full lists in build/), and for both PPO runs a
      host-clock breakdown of one rollout step into its parts; it raises if
      B2's group (MAPPO, HATRPO) or B4's (FUSED_TOWER=1) shows no device time
@@ -130,6 +147,10 @@ MLP_B = 8 * 4096                # episode_length x E rows per agent in the MARL 
 MLP_SHAPES = (("actor layer 0", 128, 512, False), ("hidden", 512, 512, False),
               ("critic layer 0", 512, 512, True))   # (name, Din, H, share obs)
 MLP_OUTPUTS = ("dx", "dw", "db", "dgamma", "dbeta", "dg0", "db0")
+# layer 0 of MAPPO on MultiAntCircle and MultiIngenuity: (name, obs width,
+# share obs); the caller pads each to Din = 128
+MLP_PAD_SHAPES = (("MultiAntCircle actor", 38, False), ("MultiAntCircle critic", 76, True),
+                  ("MultiIngenuity actor", 13, False), ("MultiIngenuity critic", 52, True))
 TOWER_SHAPES = (("actor tower", 128, False), ("critic tower", 512, True))  # (name, Din, share obs)
 TOWER_H, TOWER_L = 512, 3
 # B4/B5 against their plain versions, of the output's scale (y: one bf16 ulp
@@ -741,6 +762,196 @@ def trainer_files_phase(fs, root, dev):
     print(f"phase 5e: {time.perf_counter() - t_phase:.1f} s")
 
 
+def sarl_zoo_phase(fs, fm, root, dev):
+    """Phase 5f, the single-agent zoo and the other tasks, all through
+    cli.train.main from cfg/ with fixed seeds, in build/smoke_5f/ (emptied
+    first, removed at the end): (a) TenAnt + TRPO at E envs for 2
+    iterations: per iteration exactly 24 B1 launches, cg_nsteps + 1
+    Fisher-vector products, 1..max_num_backtrack line-search candidates,
+    the accepted flag, a finite value loss; rollout ms, update ms,
+    env-steps/s.  (b) TenAnt + SAC (6 iterations), TD3 and DDPG (10 each)
+    at their YAMLs' configuration (numEnvs 128): 24 B1 per iteration, the
+    collect-only warm-up iterations (batch_size slots at 8 a step), then
+    noptepochs x nminibatches gradient steps per env step (SAC 32 an
+    iteration, TD3/DDPG 160) and pi steps (TD3 half of them), the ring's
+    device bytes, a finite q_loss; then SAC once more with --model_dir
+    latest --test --headless --episode_length 100: params and target_params
+    bit for bit, 300 B1.  (c) MultiAntCircle and MultiIngenuity at E envs,
+    1 iteration each of MAPPO (B2/B3 launches as the update's towers run
+    them, no B1: the array engine) and PPO; finite rewards and
+    observations on the card.  Returns the TRPO, SAC and TD3 trainers for
+    the profiles."""
+    import shutil
+    import torch
+    from massive_marl_tpu_torch.algos.rl.offpolicy import OffPolicy
+    from massive_marl_tpu_torch.algos.rl.trpo import TRPO
+    from massive_marl_tpu_torch.cli import train as cli
+    from massive_marl_tpu_torch.utils.tree import tree_leaves
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "smoke_5f")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def run(task, algo, *extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main(["--task", task, "--algo", algo, "--seed", "0",
+                        "--logdir", os.path.join(work, f"{task}_{algo}"), *extra])
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def patched(cls, wrap):
+        """cls.train_iter replaced by wrap(the original); returns the undo."""
+        orig = cls.train_iter
+        cls.train_iter = wrap(orig)
+        return lambda: setattr(cls, "train_iter", orig)
+
+    # (a) TRPO at E envs
+    rows = []
+
+    def trpo_timed(self):
+        n0 = fs.substep_kernel.launches
+        m, roll_s, upd_s = timed_iteration(self)
+        rows.append((m, roll_s, upd_s, fs.substep_kernel.launches - n0, dict(self.last_search)))
+        return m
+    restore = patched(TRPO, lambda orig: trpo_timed)
+    try:
+        trpo, secs = run("TenAnt", "trpo", "--num_envs", str(E), "--max_iterations", "2")
+    finally:
+        restore()
+    c = trpo.cfg
+    want = c.nsteps * trpo.env.spec.substeps
+    for it, (m, roll_s, upd_s, n, search) in enumerate(rows):
+        if n != want or search["fvps"] != c.cg_nsteps + 1 \
+                or not 1 <= search["candidates"] <= c.max_num_backtrack \
+                or m["accepted"] not in (0.0, 1.0) or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"TRPO iteration {it}: {n} B1 launches (expected {want}), "
+                                 f"search {search}, metrics {m}")
+        print(f"  TRPO it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms, "
+              f"{c.nsteps * E / (roll_s + upd_s):.1f} env-steps/s; B1 launches {n}, "
+              f"Fisher-vector products {search['fvps']}, line-search candidates "
+              f"{search['candidates']}, accepted {m['accepted']:.0f}, value loss "
+              f"{m['value_loss']:.4f}, rew/step {m['mean_reward']:.3f}")
+    n_params = sum(p.numel() for p in trpo.actor.parameters()) + \
+        sum(p.numel() for p in trpo.critic.parameters())
+    print(f"  TRPO (E={E}, hidden {c.hidden}, {n_params} parameters): main() {secs:.1f} s")
+
+    # (b) SAC, TD3, DDPG at the YAMLs' configuration
+    with open(os.path.join(root, "cfg", "sac", "config.yaml")) as fh:
+        text = fh.read()
+    if text.count("  save_interval: 1000\n") != 1:
+        raise AssertionError("cfg/sac/config.yaml: no `save_interval: 1000` line")
+    sac_cfg = os.path.join(work, "sac.yaml")
+    with open(sac_cfg, "w") as fh:
+        fh.write(text.replace("  save_interval: 1000\n", "  save_interval: 1\n"))
+    off_rows = []
+
+    def off_timed(orig):
+        def timed(self, update=True):
+            torch.cuda.synchronize()
+            n0, g0, p0 = fs.substep_kernel.launches, self.grad_steps, self.pi_steps
+            t0 = time.perf_counter()
+            m = orig(self, update)
+            torch.cuda.synchronize()
+            off_rows.append((update, time.perf_counter() - t0, fs.substep_kernel.launches - n0,
+                             self.grad_steps - g0, self.pi_steps - p0,
+                             {k: float(v) for k, v in m.items()}))
+            return m
+        return timed
+    restore = patched(OffPolicy, off_timed)
+    trained = {}
+    try:
+        for algo, iters in (("sac", 6), ("td3", 10), ("ddpg", 10)):
+            off_rows.clear()
+            extra = ("--cfg_train", sac_cfg) if algo == "sac" else ()
+            t, secs = run("TenAnt", algo, "--max_iterations", str(iters), *extra)
+            c = t.cfg
+            want_b1 = c.nsteps * t.env.spec.substeps
+            collect = -(-c.batch_size // c.nsteps)
+            steps = c.nsteps * c.noptepochs * c.nminibatches
+            pi_want = steps // c.policy_delay if algo == "td3" else steps
+            for it, (upd, dt, n, g, pi, m) in enumerate(off_rows):
+                ok = n == want_b1 and upd == (it >= collect) and \
+                    (g, pi) == ((steps, pi_want) if upd else (0, 0)) and \
+                    all(math.isfinite(v) for v in m.values())
+                if not ok:
+                    raise AssertionError(f"{algo} iteration {it}: training {upd}, B1 {n} "
+                                         f"(expected {want_b1}), gradient steps {g}, pi steps "
+                                         f"{pi} (expected {steps}, {pi_want} after {collect} "
+                                         f"collect-only iterations), metrics {m}")
+            if len(off_rows) != iters:
+                raise AssertionError(f"{algo}: {len(off_rows)} iterations, expected {iters}")
+            ring = t.state.replay.nbytes()
+            want_ring = c.replay_size * t.num_envs * (2 * (2 * t.obs_dim + t.act_dim) + 8)
+            if ring != want_ring or not t.state.replay.obs.is_cuda:
+                raise AssertionError(f"{algo}: ring of {ring} B on {t.state.replay.obs.device}, "
+                                     f"expected {want_ring} B on the card")
+            n_params = sum(x.numel() for x in tree_leaves(t.state.params))
+            coll_ms = statistics.median(1e3 * dt for upd, dt, *_ in off_rows if not upd)
+            train_ms = statistics.median(1e3 * dt for upd, dt, *_ in off_rows if upd)
+            q = [r[5]["q_loss"] for r in off_rows if r[0]]
+            print(f"  {algo.upper()} (E={t.num_envs}, hidden {c.hidden_nodes}x{c.hidden_layer}, "
+                  f"{n_params} parameters, batch {c.batch_size} slots = "
+                  f"{c.batch_size * t.num_envs} rows, R={c.replay_size}): {collect} collect-only "
+                  f"iterations {coll_ms:.1f} ms (median), {iters - collect} training iterations "
+                  f"{train_ms:.1f} ms (median; update ~{train_ms - coll_ms:.1f} ms), "
+                  f"{c.nsteps * t.num_envs / (train_ms / 1e3):.1f} env-steps/s training; "
+                  f"{steps} gradient steps and {pi_want} pi steps per training iteration, "
+                  f"{want_b1} B1 per iteration; ring {ring} B on the card; q_loss "
+                  + ", ".join(f"{v:.4g}" for v in q) + f"; main() {secs:.1f} s")
+            trained[algo] = t
+    finally:
+        restore()
+    sac, td3 = trained["sac"], trained["td3"]
+    del trained
+    fs.substep_kernel.launches = 0
+    tested, secs = run("TenAnt", "sac", "--cfg_train", sac_cfg, "--test", "--headless",
+                       "--episode_length", "100", "--model_dir", "latest")
+    n = fs.substep_kernel.launches
+    leaves = lambda tr: tree_leaves(tr.state.params) + tree_leaves(tr.state.target_params)
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(leaves(sac), leaves(tested)))
+    if not same or tested.state.iteration != 6 or n != 300 or not math.isfinite(tested.last_eval):
+        raise AssertionError(f"SAC --model_dir latest --test: bit for bit {same}, iteration "
+                             f"{tested.state.iteration}, {n} B1, return {tested.last_eval}")
+    print(f"  SAC --model_dir latest --test --headless (100 steps): params and target_params "
+          f"bit for bit from model_6.ckpt "
+          f"({os.path.getsize(os.path.join(work, 'TenAnt_sac', 'seed0', 'model_6.ckpt'))} B), "
+          f"mean return {tested.last_eval:.3f}, {n} B1, main() {secs:.2f} s")
+    del tested
+    torch.cuda.empty_cache()
+
+    # (c) the other tasks: MAPPO and PPO, one iteration each
+    for task in ("MultiAntCircle", "MultiIngenuity"):
+        for algo in ("mappo", "ppo"):
+            counters = (fs.substep_kernel, fm.fwd_kernel, fm.bwd_kernel)
+            for k in counters:
+                k.launches = 0
+            t, secs = run(task, algo, "--num_envs", str(E), "--max_iterations", "1")
+            got = tuple(k.launches for k in counters)
+            env = t.env
+            obs = t.state.env_state.obs
+            if algo == "mappo":
+                c = t.cfg
+                towers = c.ppo_epoch * max(1, c.num_mini_batch) * 2 * (t.N if t.sequential else 1)
+                want = (0, (1 + c.layer_n) * towers, (1 + c.layer_n) * towers)
+                m = t.last_metrics
+            else:
+                want, m = (0, 0, 0), t.last_metrics
+            if got != want or tuple(obs.shape) != (E, env.num_obs) or not obs.is_cuda \
+                    or not torch.isfinite(obs).all() or not math.isfinite(m["mean_reward"]):
+                raise AssertionError(f"{task} {algo}: B1/B2/B3 launches {got} (expected {want}), "
+                                     f"obs {tuple(obs.shape)} on {obs.device}, metrics {m}")
+            print(f"  {task} + {algo.upper()} (E={E}, {env.num_agents} agents, obs "
+                  f"{env.num_ant_obs} per agent, {env.num_obs} shared): rew/step "
+                  f"{m['mean_reward']:.4f}, {m['fps']:.1f} env-steps/s, B1/B2/B3 launches {got}, "
+                  f"main() {secs:.1f} s")
+            del t
+    shutil.rmtree(work)
+    print(f"phase 5f: {time.perf_counter() - t_phase:.1f} s")
+    return trpo, sac, td3
+
+
 def check_ppo(ppo, it, m, launches, want, width):
     """Finite metrics and observations of width `width`; B1 launches."""
     import torch
@@ -808,17 +1019,20 @@ def legacy_step_check(fs, dev):
           f"legacy branch; every env finite after the step, {resets} of {E} reset")
 
 
-def mlp_operands(N, Din, H, layer0, shared, gen, dev):
+def mlp_operands(N, Din, H, layer0, shared, gen, dev, width=None):
     """Operands of one fused block at the MARL update's shapes.  Layer 0
     reads feature_norm'd observations (obs 46 or share obs 388, padded) with
     the feature LayerNorm's affine; a hidden layer reads a bf16 LayerNorm
-    output with ones/zeros.  Weights at the orthogonal init's scale."""
+    output with ones/zeros.  Weights at the orthogonal init's scale.  With
+    `width`, layer 0 reads observations of that width padded as the MARL
+    update pads them (algos/marl/fused_nets.py): zero columns of x, zero
+    affine and zero rows of W past the width."""
     import torch
     from massive_marl_tpu_torch.ops import fused_mlp as fm
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
     rows = 1 if shared else N
     if layer0:
-        x = fm.feature_norm(r(rows, MLP_B, 388 if shared else 46))
+        x = fm.feature_norm(r(rows, MLP_B, width or (388 if shared else 46)))
         g0, b0 = 1 + 0.1 * r(N, Din), 0.1 * r(N, Din)
     else:
         x = r(rows, MLP_B, Din).to(torch.bfloat16)
@@ -826,6 +1040,8 @@ def mlp_operands(N, Din, H, layer0, shared, gen, dev):
     if shared:
         x = x.expand(N, MLP_B, Din)
     w16 = (r(N, Din, H) * (2.0 / Din) ** 0.5).to(torch.bfloat16)
+    if width:
+        g0[:, width:], b0[:, width:], w16[:, width:] = 0.0, 0.0, 0.0
     return dict(x=x, w16=w16, b=0.1 * r(N, H), g=1 + 0.1 * r(N, H), be=0.1 * r(N, H),
                 g0=g0, b0=b0, dy=r(N, MLP_B, H).to(torch.bfloat16))
 
@@ -961,6 +1177,13 @@ def mlp_phase(fm, dev):
                 main = row
             del d, a
             torch.cuda.empty_cache()
+    # layer 0 of MAPPO on the other tasks: obs and share obs narrower than
+    # 128, padded by the caller (one agent of the sequential schedule)
+    for name, width, shared in MLP_PAD_SHAPES:
+        d = mlp_operands(1, 128, 512, True, shared, gen, dev, width=width)
+        err = check_mlp(fm, d, f"{name} {width}->128->512")
+        worst = {k: max(worst[k], err[k]) for k in worst}
+        del d
     return worst, main
 
 
@@ -1170,18 +1393,29 @@ def kernel_group(name: str) -> str:
     return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
 
 
-def profile_iteration(trainer, path, label, require=()):
-    """One training iteration under torch.profiler: device time by kernel
-    group and name and the device's busy share; the full list goes to path.
-    require: (group, kernel wrapper) pairs; raises if a wrapper launched in
-    the iteration and its group shows no device time."""
+def offpolicy_iteration(trainer):
+    """One training iteration of an off-policy trainer (env steps and
+    gradient steps interleave): (metrics as floats, wall s, None)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.train_iter()
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in m.items()}, time.perf_counter() - t0, None
+
+
+def profile_iteration(trainer, path, label, require=(), run=timed_iteration):
+    """One training iteration (`run`) under torch.profiler: device time by
+    kernel group and name and the device's busy share; the full list goes
+    to path.  require: (group, kernel wrapper) pairs; raises if a wrapper
+    launched in the iteration and its group shows no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     before = [k.launches for _, k in require]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, roll_s, upd_s = timed_iteration(trainer)
+        _, roll_s, upd_s = run(trainer)
     by_name, n_kernels = {}, 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -1192,16 +1426,18 @@ def profile_iteration(trainer, path, label, require=()):
         g = kernel_group(name)
         groups[g] = groups.get(g, 0.0) + ms
     busy_ms = sum(by_name.values())
-    wall_ms = (roll_s + upd_s) * 1e3
+    wall_ms = (roll_s + (upd_s or 0.0)) * 1e3
+    parts = "" if upd_s is None else \
+        f" (rollout {1e3 * roll_s:.3f}, update {1e3 * upd_s:.3f})"
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as fh:
-        fh.write(f"{label}: wall ms {wall_ms:.3f} (rollout {1e3 * roll_s:.3f}, update "
-                 f"{1e3 * upd_s:.3f}); device busy ms {busy_ms:.3f}; kernels {n_kernels}\n")
+        fh.write(f"{label}: wall ms {wall_ms:.3f}{parts}; device busy ms {busy_ms:.3f}; "
+                 f"kernels {n_kernels}\n")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
             fh.write(f"{ms:12.3f} ms  {name}\n")
-    print(f"profile {label} (profiler on): wall {wall_ms:.3f} ms (rollout {1e3 * roll_s:.3f}, "
-          f"update {1e3 * upd_s:.3f}), device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernel launches -> {path}")
+    print(f"profile {label} (profiler on): wall {wall_ms:.3f} ms{parts}, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernel launches "
+          f"-> {path}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:10.3f} ms  {g}")
     for (g, k), n0 in zip(require, before):
@@ -1579,6 +1815,11 @@ def main() -> int:
     trainer_files_phase(fs, root, dev)
     torch.cuda.empty_cache()
 
+    # ---- 5f. TRPO and the off-policy trainers on TenAnt; MultiAntCircle, MultiIngenuity
+    print("the single-agent zoo and the other tasks through cli.train (cfg/):")
+    sarl = sarl_zoo_phase(fs, fm, root, dev)
+    torch.cuda.empty_cache()
+
     # ---- 6. TenAnt + MAPPO (then stacked, HAPPO, FUSED_TOWER=1, HATRPO) at full width
     marl_counts, tower_counts, (runner, tower, trpo) = marl_phase(dev)
 
@@ -1592,6 +1833,14 @@ def main() -> int:
     del ppo_dr
     profile_iteration(ppo_arr, os.path.join(root, "build", "profile_array_iteration.txt"),
                       "PPO array path")
+    sarl_trpo, sac, td3 = sarl
+    del sarl
+    profile_iteration(sarl_trpo, os.path.join(root, "build", "profile_trpo_iteration.txt"),
+                      "TRPO")
+    for name, t in (("SAC", sac), ("TD3", td3)):
+        profile_iteration(t, os.path.join(root, "build", f"profile_{name.lower()}_iteration.txt"),
+                          f"{name} training iteration (E={t.num_envs})", run=offpolicy_iteration)
+    del sarl_trpo, sac, td3, t
     profile_iteration(ppo_one, os.path.join(root, "build", "profile_one_ant_iteration.txt"),
                       "OneAnt PPO")
     del ppo_arr, ppo_one

@@ -94,6 +94,32 @@ class AdamState:
     count: int = 0
 
 
+def adam_update(params, grads, opt: AdamState, lr, max_grad_norm: float | None = None):
+    """optax's chain(clip_by_global_norm(max_grad_norm), adam(lr)) applied
+    in place: the gradients scaled onto the norm ball when their global
+    norm exceeds max_grad_norm (None: no clipping), then Adam (b1 0.9, b2
+    0.999, eps 1e-8) with bias correction, params -= lr * update.  `lr` is
+    a float or a 0-d tensor."""
+    if max_grad_norm is not None:
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(g_norm < max_grad_norm, torch.ones_like(g_norm),
+                            max_grad_norm / g_norm)
+        grads = torch._foreach_mul(grads, scale)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    opt.count += 1
+    torch._foreach_lerp_(opt.mu, grads, 1 - b1)
+    torch._foreach_mul_(opt.nu, b2)
+    torch._foreach_addcmul_(opt.nu, grads, grads, 1 - b2)
+    denom = torch._foreach_div(opt.nu, 1 - b2 ** opt.count)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(opt.mu, 1 - b1 ** opt.count)
+    torch._foreach_div_(upd, denom)
+    torch._foreach_mul_(upd, lr)
+    with torch.no_grad():
+        torch._foreach_sub_(params, upd)
+
+
 @dataclass
 class PPOTrainState:
     opt: AdamState
@@ -203,25 +229,8 @@ class PPO:
 
     def _step(self, grads, lr):
         """Global-norm clip, Adam moments, p -= lr * update (in place)."""
-        cfg, opt = self.cfg, self.state.opt
-        params = list(self.model.parameters())
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(g_norm < cfg.max_grad_norm, torch.ones_like(g_norm),
-                            cfg.max_grad_norm / g_norm)
-        grads = torch._foreach_mul(grads, scale)
-        b1, b2, eps = 0.9, 0.999, 1e-8
-        opt.count += 1
-        torch._foreach_lerp_(opt.mu, grads, 1 - b1)
-        torch._foreach_mul_(opt.nu, b2)
-        torch._foreach_addcmul_(opt.nu, grads, grads, 1 - b2)
-        denom = torch._foreach_div(opt.nu, 1 - b2 ** opt.count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(opt.mu, 1 - b1 ** opt.count)
-        torch._foreach_div_(upd, denom)
-        torch._foreach_mul_(upd, lr)
-        with torch.no_grad():
-            torch._foreach_sub_(params, upd)
+        adam_update(list(self.model.parameters()), grads, self.state.opt, lr,
+                    self.cfg.max_grad_norm)
 
     def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor):
         """GAE and the epochs of minibatch updates on one trajectory; returns

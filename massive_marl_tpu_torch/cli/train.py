@@ -1,5 +1,8 @@
-"""CLI trainer of the port (twin of massive_marl_tpu/cli/train.py): TenAnt
-with PPO or MAPPO/IPPO/HAPPO/HATRPO, and OneAnt with PPO.
+"""CLI trainer of the port (twin of massive_marl_tpu/cli/train.py): the
+single-agent algorithms PPO, TRPO, DDPG, TD3 and SAC on every task (OneAnt,
+TenAnt, MultiAntCircle, MultiIngenuity; a task of many agents through its
+joint-action interface), and MAPPO/IPPO/HAPPO/HATRPO on the tasks of many
+agents.
 
     python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo ppo \
         --num_envs 4096 --max_iterations 100 [--randomize] [--logdir DIR]
@@ -7,6 +10,10 @@ with PPO or MAPPO/IPPO/HAPPO/HATRPO, and OneAnt with PPO.
         --num_envs 4096 --num_env_steps 2000000
     python -m massive_marl_tpu_torch.cli.train --task OneAnt --algo ppo \
         --num_envs 4096 --max_iterations 100 --fused_kernel 0
+    python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo trpo|ddpg|td3|sac \
+        --max_iterations 100
+    python -m massive_marl_tpu_torch.cli.train --task MultiAntCircle|MultiIngenuity \
+        --algo mappo --num_envs 4096 --max_iterations 10
     python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo ppo \
         --seed 1 --model_dir latest --test [--headless]
     python -m massive_marl_tpu_torch.cli.train --task TenAnt \
@@ -17,9 +24,9 @@ from cfg/<algo>/config.yaml (or --cfg_env / --cfg_train), with the
 command line's overrides (utils/config.load_cfg): --num_envs (the YAML
 says 128), --episode_length, --randomize (task.randomize: domain
 randomization from the env YAML's randomization_params) and --seed (-1, the
-default, draws one).  --max_iterations caps PPO's iterations, and gives a
-MARL run max_iterations x episode_length x num_envs steps unless
---num_env_steps is set.  --fused_kernel sets the env's sim.fused_kernel: 0
+default, draws one).  --max_iterations caps a single-agent trainer's
+iterations, and gives a MARL run max_iterations x episode_length x
+num_envs steps unless --num_env_steps is set.  --fused_kernel sets the env's sim.fused_kernel: 0
 steps the physics on the array engine, 1 or auto (the YAML's default) on
 the substep kernel.  FUSED_TOWER=1 in the environment runs the MARL
 update's towers on kernels B4/B5.  Runs on CUDA unless --device cpu (or
@@ -49,7 +56,7 @@ from massive_marl_tpu_torch.utils.registry import build_env
 # the MARL algorithms the port's runner implements
 MARL_PORTED = ("mappo", "ippo", "happo", "hatrpo")
 # where ROADMAP.md queues the others
-NOT_PORTED = {**{a: "A.5" for a in ("trpo", "ddpg", "td3", "sac")}, "mat": "A.7", "maddpg": "A.7",
+NOT_PORTED = {"mat": "A.7", "maddpg": "A.7",
               **{a: "A.8" for a in cfg_mod.MTRL_ALGOS + cfg_mod.METARL_ALGOS
                  + cfg_mod.OFFRL_ALGOS}}
 # env steps per timed chunk of --random_actions
@@ -89,9 +96,25 @@ def evaluate_sarl(trainer, env, num_envs, n_episodes: int = 32, seed: int = 0):
     """Deterministic (mean-action) episodes in E = min(n_episodes,
     num_envs) dedicated envs reset from a stream seeded from seed + 10_000;
     the mean return over the first episode of each env."""
+    if trainer.state is None:
+        trainer.init_state()
     E = max(1, min(n_episodes, num_envs))
     policy = lambda obs: torch.clamp(trainer.act_inference(obs), -1.0, 1.0)
     return evaluate_episodes(env, E, policy, eval_generator(seed, trainer.device))
+
+
+def process_sarl(args, env, cfg_train, logdir, num_envs):
+    """The single-agent trainer of --algo, configured from its train YAML
+    (as the JAX CLI's process_sarl)."""
+    algo, kw = args.algo, dict(seed=cfg_train["seed"], log_dir=logdir, device=args.device)
+    if algo == "ppo":
+        from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
+        return PPO(env, num_envs, PPOConfig.from_cfg_train(cfg_train), **kw)
+    if algo == "trpo":
+        from massive_marl_tpu_torch.algos.rl.trpo import TRPO, TRPOConfig
+        return TRPO(env, num_envs, TRPOConfig.from_cfg_train(cfg_train), **kw)
+    from massive_marl_tpu_torch.algos.rl.offpolicy import OffPolicy, OffPolicyConfig
+    return OffPolicy(env, num_envs, OffPolicyConfig.from_cfg_train(cfg_train, algo), **kw)
 
 
 def _restore(args, restore, logdir):
@@ -156,8 +179,8 @@ def main(argv=None):
         return bench_random_actions(args, cfg, num_envs)
     if algo in NOT_PORTED:
         raise NotImplementedError(f"--algo {algo} is not ported yet (ROADMAP {NOT_PORTED[algo]})")
-    if args.task == "OneAnt" and algo != "ppo":
-        raise SystemExit("OneAnt is a single-agent task: --algo ppo")
+    if args.task == "OneAnt" and algo in MARL_PORTED:
+        raise SystemExit(f"OneAnt is a single-agent task: --algo one of {cfg_mod.SARL_ALGOS}")
     # --play alone also evaluates (reference config.py:288-294); --resume N
     # resumes from the newest checkpoint in the logdir
     args.test = bool(args.test or args.play)
@@ -184,10 +207,8 @@ def main(argv=None):
         runner.run(steps)
         return runner
 
-    from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
     env = build_env(args.task, cfg, multi_agent=False, device=args.device, seed=seed)
-    trainer = PPO(env, num_envs, PPOConfig.from_cfg_train(cfg_train), seed=cfg_train["seed"],
-                  log_dir=logdir, device=args.device)
+    trainer = process_sarl(args, env, cfg_train, logdir, num_envs)
     _restore(args, trainer.load, logdir)
     if args.test:
         trainer.last_eval = evaluate_sarl(trainer, env, num_envs)

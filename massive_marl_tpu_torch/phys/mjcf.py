@@ -4,8 +4,10 @@ massive_marl_tpu/phys/mjcf.py).
 Covers nested <body> trees with a free base and one hinge per non-base
 body, sphere/capsule/box/cylinder <geom> (with fromto), a single-level
 <default> for joint/geom, degree angles, density-derived inertia and
-<actuator><motor gear=...>.  Welding jointless bodies into their parent
-(the rotors of ingenuity.xml) is not ported yet and raises.
+<actuator><motor gear=...>.  An asset whose bodies do not each carry one
+hinge (ingenuity.xml: a hinge on the base and locked rotor joints) is welded
+into one rigid free body: every geom moves into the base body with its
+body's fixed transform composed from the root, so nb = 1 and nj = 0.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import xml.etree.ElementTree as ET
 import numpy as np
 import torch
 
-from .system import (BOX, CAPSULE, CYLINDER, SPHERE, GeomSpec, System,
+from .maths import quat_mul
+from .system import (BOX, CAPSULE, CYLINDER, SPHERE, GeomSpec, System, _quat_to_mat_np,
                      build_body_inertia, make_contact_points)
 
 _GEOM_TYPES = {"sphere": SPHERE, "capsule": CAPSULE, "box": BOX,
@@ -60,6 +63,28 @@ class MjcfModel:
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def _quat_mul_np(a, b):
+    return quat_mul(torch.as_tensor(a, dtype=torch.float64),
+                    torch.as_tensor(b, dtype=torch.float64)).numpy()
+
+
+def _weld(body_names, parents, body_pos, body_quat, geoms):
+    """Merge every body into the base: each body's transform from the base
+    frame (the bodies' fixed offsets composed down the tree; the base's own
+    offset excluded) is applied to its geoms, which then belong to body 0."""
+    X = {0: (np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]))}
+    for b in range(1, len(body_names)):
+        pp, pq = X[parents[b]]
+        X[b] = (pp + _quat_to_mat_np(pq) @ body_pos[b], _quat_mul_np(pq, body_quat[b]))
+    merged = []
+    for g in geoms:
+        p, q = X[g.body]
+        merged.append(GeomSpec(body=0, gtype=g.gtype, size=g.size,
+                               pos=p + _quat_to_mat_np(q) @ g.pos, quat=_quat_mul_np(q, g.quat),
+                               density=g.density, friction=g.friction, contact=g.contact))
+    return [body_names[0]], [-1], [body_pos[0]], [body_quat[0]], merged
 
 
 def parse_mjcf(path: str) -> MjcfModel:
@@ -144,9 +169,11 @@ def parse_mjcf(path: str) -> MjcfModel:
 
     nb, nj = len(body_names), len(jnt_names)
     if nj != nb - 1:
-        raise NotImplementedError(
-            f"{path}: {nb} bodies but {nj} hinges; welding jointless bodies "
-            "into their parent is not ported yet")
+        body_names, parents, body_pos, body_quat, geoms = _weld(
+            body_names, parents, body_pos, body_quat, geoms)
+        nb, nj = 1, 0
+        jnt_axis, jnt_pos, jnt_range, jnt_armature, jnt_damping, jnt_names = \
+            [], [], [], [], [], []
 
     foot_body_ids = [i for i, n in enumerate(body_names) if "foot" in n]
     for g in geoms:

@@ -12,7 +12,12 @@ their state), so a file written by either package restores in the other:
   "vnorm", "iteration"} (massive_marl_tpu/algos/marl/runner.py:1242-1279),
   where the optimizer state has the structure of the JAX runner's
   cfg.optimizer (`marl_opt_skeleton`), its first moment in bf16 under
-  bf16_adam_mu.
+  bf16_adam_mu;
+* TRPO: {"actor_params", "critic_params", "iteration"}
+  (massive_marl_tpu/algos/rl/trpo.py:310-316), no optimizer state;
+* DDPG/TD3/SAC: {"params", "target_params", "iteration"}
+  (massive_marl_tpu/algos/rl/offpolicy.py:460-465), the networks in flax's
+  own layout, which the port's off-policy trainer keeps.
 """
 from __future__ import annotations
 
@@ -24,42 +29,50 @@ import torch
 from massive_marl_tpu_torch.utils.tree import tree_unflatten
 
 
+def mlp_from_flax(mlp, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax MLP tree {"Dense_i": {kernel, bias}} -> the state_dict entries
+    of algos.nets.MLP under `prefix`.  Flax kernels are [in, out], torch
+    weights [out, in]; the last Dense is the head."""
+    out, n = {}, len(mlp)
+    for i in range(n):
+        dense = mlp[f"Dense_{i}"]
+        name = f"{prefix}.head" if i == n - 1 else f"{prefix}.hidden.{i}"
+        out[f"{name}.weight"] = torch.from_numpy(np.asarray(dense["kernel"], np.float32).T.copy())
+        out[f"{name}.bias"] = torch.from_numpy(np.asarray(dense["bias"], np.float32).copy())
+    return out
+
+
+def mlp_to_flax(state: Dict[str, torch.Tensor], prefix: str):
+    """The inverse of mlp_from_flax: the entries of `state` under `prefix`
+    (parameters, or Adam moments laid out like them) -> the flax MLP tree,
+    weights transposed to [in, out]."""
+    n_hidden = sum(1 for k in state if k.startswith(f"{prefix}.hidden.") and k.endswith(".weight"))
+    mlp = {}
+    for i in range(n_hidden + 1):
+        name = f"{prefix}.head" if i == n_hidden else f"{prefix}.hidden.{i}"
+        mlp[f"Dense_{i}"] = {"kernel": state[f"{name}.weight"].t(), "bias": state[f"{name}.bias"]}
+    return mlp
+
+
+def _f32_tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32).copy())
+
+
 def actor_critic_from_flax(params_np) -> Dict[str, torch.Tensor]:
     """The flax ActorCritic tree {"params": {"MLP_0": {"Dense_i": {kernel,
     bias}}, "MLP_1": ..., "log_std"}} -> a state_dict of
-    algos.nets.ActorCritic.  Flax kernels are [in, out], torch weights
-    [out, in]; the last Dense of each MLP is its head."""
+    algos.nets.ActorCritic (MLP_0 the actor, MLP_1 the critic)."""
     p = params_np["params"]
-    out = {}
-    for flax_name, torch_name in (("MLP_0", "actor"), ("MLP_1", "critic")):
-        mlp = p[flax_name]
-        n = len(mlp)
-        for i in range(n):
-            dense = mlp[f"Dense_{i}"]
-            prefix = f"{torch_name}.head" if i == n - 1 else f"{torch_name}.hidden.{i}"
-            out[f"{prefix}.weight"] = torch.from_numpy(
-                np.asarray(dense["kernel"], np.float32).T.copy())
-            out[f"{prefix}.bias"] = torch.from_numpy(np.asarray(dense["bias"], np.float32).copy())
-    out["log_std"] = torch.from_numpy(np.asarray(p["log_std"], np.float32).copy())
-    return out
+    return {**mlp_from_flax(p["MLP_0"], "actor"), **mlp_from_flax(p["MLP_1"], "critic"),
+            "log_std": _f32_tensor(p["log_std"])}
 
 
 def actor_critic_to_flax(state: Dict[str, torch.Tensor]):
     """The inverse of actor_critic_from_flax: tensors under the names of
     ActorCritic's state_dict (parameters, or Adam moments laid out like
     them) -> the flax tree, weights transposed to [in, out]."""
-    p = {}
-    for flax_name, torch_name in (("MLP_0", "actor"), ("MLP_1", "critic")):
-        n_hidden = sum(1 for k in state if k.startswith(f"{torch_name}.hidden.")
-                       and k.endswith(".weight"))
-        mlp = {}
-        for i in range(n_hidden + 1):
-            prefix = f"{torch_name}.head" if i == n_hidden else f"{torch_name}.hidden.{i}"
-            mlp[f"Dense_{i}"] = {"kernel": state[f"{prefix}.weight"].t(),
-                                 "bias": state[f"{prefix}.bias"]}
-        p[flax_name] = mlp
-    p["log_std"] = state["log_std"]
-    return {"params": p}
+    return {"params": {"MLP_0": mlp_to_flax(state, "actor"), "MLP_1": mlp_to_flax(state, "critic"),
+                       "log_std": state["log_std"]}}
 
 
 def _int32(x):
@@ -171,6 +184,50 @@ def marl_state_from_flax(cfg, state):
             "actor_opt": marl_opt_from_flax(cfg, state["actor_opt"], "actor_opt"),
             "critic_opt": marl_opt_from_flax(cfg, state["critic_opt"], "critic_opt"),
             "vnorm": state["vnorm"], "iteration": int(state["iteration"])}
+
+
+TRPO_SKELETON = {"actor_params": {"params": {"MLP_0": None, "log_std": None}},
+                 "critic_params": {"params": {"MLP_0": None}}, "iteration": None}
+
+
+def trpo_state_to_flax(actor_state, critic_state, iteration: int):
+    """The JAX TRPO checkpoint tree (massive_marl_tpu/algos/rl/trpo.py:
+    310-316) from the state_dicts of the port's actor (an MLP under "mlp"
+    and "log_std") and critic (an MLP under "mlp")."""
+    return {"actor_params": {"params": {"MLP_0": mlp_to_flax(actor_state, "mlp"),
+                                        "log_std": actor_state["log_std"]}},
+            "critic_params": {"params": {"MLP_0": mlp_to_flax(critic_state, "mlp")}},
+            "iteration": _int32(iteration)}
+
+
+def trpo_state_from_flax(state):
+    """A decoded JAX TRPO checkpoint -> (actor state_dict, critic
+    state_dict, iteration)."""
+    check_keys(TRPO_SKELETON, state, what="TRPO checkpoint")
+    a, c = state["actor_params"]["params"], state["critic_params"]["params"]
+    return ({**mlp_from_flax(a["MLP_0"], "mlp"), "log_std": _f32_tensor(a["log_std"])},
+            mlp_from_flax(c["MLP_0"], "mlp"), int(state["iteration"]))
+
+
+def offpolicy_state_to_flax(params, target_params, iteration: int):
+    """The JAX off-policy checkpoint tree {"params", "target_params",
+    "iteration"} (massive_marl_tpu/algos/rl/offpolicy.py:460-465).  The
+    port keeps both trees in flax's layout ({"pi": {"params": {"Dense_i":
+    {kernel [in, out], bias}}}, "q1", ["q2"], ["alpha": {"log_alpha"}]}), so
+    they go into the file as they are."""
+    return {"params": params, "target_params": target_params, "iteration": _int32(iteration)}
+
+
+def offpolicy_state_from_flax(state, params, target_params):
+    """A decoded JAX off-policy checkpoint -> (params, target_params,
+    iteration), checked key for key against the trainer's own trees: a file
+    of another algorithm (another set of networks, another number of
+    layers, a learned temperature or none) raises ValueError."""
+    skeleton = lambda tree: {k: skeleton(v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else None
+    check_keys({"params": skeleton(params), "target_params": skeleton(target_params),
+                "iteration": None}, state, what="off-policy checkpoint")
+    return state["params"], state["target_params"], int(state["iteration"])
 
 
 def _tree_to_torch(tree):

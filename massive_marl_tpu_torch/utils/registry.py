@@ -1,6 +1,6 @@
 """Task registry, env construction and the library API (twin of
-massive_marl_tpu/utils/registry.py) for the tasks the port runs: TenAnt and
-OneAnt."""
+massive_marl_tpu/utils/registry.py): OneAnt, TenAnt, MultiAntCircle and
+MultiIngenuity."""
 from __future__ import annotations
 
 import os
@@ -16,8 +16,12 @@ def task_class(name: str):
     if name == "TenAnt":
         from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
         return TenAntEnv
-    if name in cfg_mod.TASKS:
-        raise NotImplementedError(f"task {name} is not ported yet (ROADMAP A.6)")
+    if name == "MultiAntCircle":
+        from massive_marl_tpu_torch.envs.multi_ant_circle import MultiAntCircleEnv
+        return MultiAntCircleEnv
+    if name == "MultiIngenuity":
+        from massive_marl_tpu_torch.envs.multi_ingenuity import MultiIngenuityEnv
+        return MultiIngenuityEnv
     raise ValueError(f"unknown task {name}")
 
 
@@ -27,8 +31,9 @@ def is_multi_agent(algo: str) -> bool:
 
 def build_env(task: str, cfg: dict, multi_agent: bool, device=None, seed: int = 0):
     """The batched env of `task` from its env cfg.  OneAnt is single-agent;
-    TenAnt gives SARL algorithms its joint-action interface (multi_agent
-    False) and MARL ones the per-agent views, which the runner takes."""
+    a task of many agents gives SARL algorithms its joint-action interface
+    (multi_agent False) and MARL ones the per-agent views, which the runner
+    takes."""
     return task_class(task)(cfg, device=device, seed=seed)
 
 

@@ -19,6 +19,12 @@
   completes); a third iteration trains on from it.
 * MarlRunner.eval equals a loop written here over the same env, policy
   and generator, with the first-done masking.
+* TRPO, DDPG, TD3 and SAC train through main() from cfg/ (copies with
+  narrow widths, short rollouts and a small ring), write model_<it>.ckpt,
+  and --model_dir latest --test evaluates the restored policy; OneAnt takes
+  every single-agent algorithm; MultiAntCircle and MultiIngenuity build
+  and train through main() and make(); the algorithms still to port are
+  refused by name with their ROADMAP item.
 """
 import dataclasses
 import json
@@ -137,7 +143,18 @@ def cfgs(tmp_path_factory):
                              "save_interval": 1, "use_eval": "true", "eval_interval": 1,
                              "eval_episodes": 2, "log_interval": 1}),
     }
+    trpo = open(f"{root}/trpo/config.yaml").read().replace("  - 1024", "  - 32") \
+        .replace("  - 512", "  - 16")
+    (d / "trpo_src.yaml").write_text(trpo)
+    out["trpo"] = _edit_yaml(d / "trpo_src.yaml", d / "trpo.yaml",
+                             {"save_interval": 1, "nsteps": 2})
+    for algo in ("ddpg", "td3", "sac"):
+        out[algo] = _edit_yaml(f"{root}/{algo}/config.yaml", d / f"{algo}.yaml",
+                               {"save_interval": 1, "nsteps": 2, "noptepochs": 1,
+                                "hidden_nodes": 16, "replay_size": 6, "batch_size": 2})
     for task in ("OneAnt", "TenAnt"):
+        out[task] = _edit_yaml(f"{root}/{task}.yaml", d / f"{task}.yaml", {"substeps": 1})
+    for task in ("MultiAntCircle", "MultiIngenuity"):
         out[task] = _edit_yaml(f"{root}/{task}.yaml", d / f"{task}.yaml", {"substeps": 1})
     return out
 
@@ -258,3 +275,60 @@ def test_marl_eval_matches_a_loop():
         env.generator = own
     assert dones[1].all() and not dones[2].any()   # the third step's reward is masked
     assert got == float(ret.mean())
+
+
+@pytest.mark.parametrize("algo", ["trpo", "ddpg", "td3", "sac"])
+def test_sarl_trains_and_tests(cfgs, tmp_path, algo):
+    from massive_marl_tpu_torch.algos.rl.offpolicy import OffPolicy
+    from massive_marl_tpu_torch.algos.rl.trpo import TRPO
+    run = p_train.main(_argv(cfgs, "TenAnt", algo, tmp_path, "--max_iterations", "2"))
+    assert isinstance(run, TRPO if algo == "trpo" else OffPolicy)
+    assert run.state.iteration == 2 and all(np.isfinite(v) for v in run.last_metrics.values())
+    if algo != "trpo":     # 2 slots a step, batch_size 2: the second iteration trains
+        assert run.grad_steps == 2 * run.cfg.nminibatches and run.state.replay.count == 4
+    d = tmp_path / "seed2"
+    assert {"model_1.ckpt", "model_2.ckpt", "metrics.csv"} <= set(os.listdir(d))
+    tags = {row.split(",")[2] for row in (d / "metrics.csv").read_text().splitlines()[1:]}
+    assert tags == {"train/mean_reward", "perf/fps",
+                    "train/value_loss" if algo == "trpo" else "train/q_loss"}
+    tested = p_train.main(_argv(cfgs, "TenAnt", algo, tmp_path, "--test", "--headless",
+                                "--model_dir", "latest"))
+    assert np.isfinite(tested.last_eval) and tested.state.iteration == 2
+    same = (lambda t: [p.detach() for p in t.actor.parameters()]) if algo == "trpo" else \
+        (lambda t: tree_leaves(t.state.params) + tree_leaves(t.state.target_params))
+    assert all(torch.equal(a, b) for a, b in zip(same(run), same(tested)))
+
+
+def test_one_ant_takes_every_sarl_algorithm(cfgs, tmp_path):
+    for algo in ("sac", "trpo"):
+        t = p_train.main(_argv(cfgs, "OneAnt", algo, tmp_path, "--max_iterations", "1"))
+        assert t.state.iteration == 1 and t.env.num_obs == 60
+    with pytest.raises(SystemExit):      # a MARL algorithm on a single-agent task
+        p_train.main(_argv(cfgs, "OneAnt", "mappo", tmp_path))
+
+
+@pytest.mark.parametrize("task", ["MultiAntCircle", "MultiIngenuity"])
+def test_other_tasks_build_and_train(cfgs, tmp_path, task):
+    import massive_marl_tpu_torch as port
+    from massive_marl_tpu_torch.wrap.vec_task import MultiVecTaskPython, VecTaskPython
+    runner = p_train.main(_argv(cfgs, task, "mappo", tmp_path / "m", "--max_iterations", "1"))
+    assert type(runner.env).__name__ == task + "Env" and runner.state.iteration == 1
+    assert runner.obs_dim == runner.env.num_ant_obs and torch.isfinite(
+        runner.state.env_state.obs).all()
+    ppo = p_train.main(_argv(cfgs, task, "ppo", tmp_path / "p", "--max_iterations", "1"))
+    assert np.isfinite(ppo.last_metrics["mean_reward"])
+    multi = port.make(task, algo="mappo", num_envs=2, device="cpu")
+    obs, share, _ = multi.reset()
+    assert isinstance(multi, MultiVecTaskPython) and obs.shape[:2] == (2, multi.num_agents)
+    single = port.make(task, num_envs=2, device="cpu")
+    o, r, done, _ = single.step(torch.zeros(2, single.num_actions))
+    assert isinstance(single, VecTaskPython) and o.shape == (2, single.num_obs)
+    assert torch.isfinite(o).all() and torch.isfinite(r).all()
+
+
+@pytest.mark.parametrize("algo,item", [("mat", "A.7"), ("maddpg", "A.7"), *(
+    (a, "A.8") for a in p_config.MTRL_ALGOS + p_config.METARL_ALGOS + p_config.OFFRL_ALGOS)])
+def test_unported_algorithms_refused_by_name(algo, item):
+    with pytest.raises(NotImplementedError, match=f"--algo {algo} is not ported yet "
+                                                  rf"\(ROADMAP {item}\)"):
+        p_train.main(["--algo", algo, "--device", "cpu"])

@@ -114,7 +114,7 @@ def test_cli_trains_what_the_jax_cli_trains(monkeypatch):
 def test_cli_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         p_cli.main(["--algo", "mat", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        p_registry.task_class("MultiAntCircle")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        p_cli.main(["--algo", "mtppo", "--device", "cpu"])
     with pytest.raises(SystemExit):
         p_cli.main(["--task", "OneAnt", "--algo", "happo", "--device", "cpu"])

@@ -47,7 +47,13 @@ def test_scan_sees_the_whole_port():
                  "massive_marl_tpu_torch/utils/viewer.py",
                  "massive_marl_tpu_torch/utils/registry.py",
                  "massive_marl_tpu_torch/utils/config.py",
-                 "massive_marl_tpu_torch/native/__init__.py"):
+                 "massive_marl_tpu_torch/native/__init__.py",
+                 "massive_marl_tpu_torch/algos/rl/trpo.py",
+                 "massive_marl_tpu_torch/algos/rl/offpolicy.py",
+                 "massive_marl_tpu_torch/envs/multi_ant_circle.py",
+                 "massive_marl_tpu_torch/envs/multi_ingenuity.py",
+                 "massive_marl_tpu_torch/wrap/multi_task_vec_task.py",
+                 "massive_marl_tpu_torch/phys/mjcf.py"):
         assert must in names
     tree = ast.parse("import jax.numpy as jnp\nfrom massive_marl_tpu.phys import mjcf\n"
                      "import importlib\nimportlib.import_module('flax')\nimport msgpack\n")
