@@ -101,6 +101,21 @@ Phases; any failure raises and the script exits non-zero:
      files go under build/smoke_5f/, removed at its end; phase 4 holds
      B2/B3 at the new tasks' layer-0 widths (38, 76, 13, 52 padded to 128)
      as well;
+  5g. the rest of the MARL zoo on TenAnt: MAT at cfg/mat and E=4096 (1
+     warm-up iteration through MatRunner.run, 2 timed through
+     rollout_phase / update_phase; exactly 24 B1 and no B2-B5 launch each;
+     rollout ms, update ms, env-steps/s, peak memory; the KV-cached decode
+     against N full decodes on the card at E=4096, rtol 1e-5 + atol 1e-5);
+     MADDPG through cli.train.main at cfg/maddpg (save_interval 10) and
+     TenAnt.yaml's numEnvs 128: 10 iterations, 8 collect-only, then 2
+     with 8 gradient steps, 24 B1 each, the bf16 ring's device bytes
+     (R x E x 3,560 B), then --model_dir latest --test --headless: the
+     parameters bit for bit from maddpg_10.ckpt and 300 B1; recurrent
+     MAPPO (cfg/mappo with use_recurrent_policy: hidden 512, L = T = 8) at
+     E=4096 for 2 timed iterations and recurrent HAPPO (data_chunk_length
+     4, num_mini_batch 2) for 1, through cli.train.main: 24 B1 and no
+     B2-B5 per iteration.  Its YAMLs and files go under build/smoke_5g/,
+     removed at its end; it prints its seconds;
   6. TenAnt + MAPPO at full width (MarlConfig(): N=10, hidden 512, 3 fused
      blocks per tower, episode_length 8, 5 epochs, E=4096, the sequential
      schedule): 1 warm-up iteration through MarlRunner.run and 3 timed
@@ -118,8 +133,9 @@ Phases; any failure raises and the script exits non-zero:
      linearizations, no B3, B4/B5 as counted);
   7. one PPO, one PPO --randomize (the CLI's trainer), one PPO array-path,
      one TRPO, one SAC and one TD3 training iteration (E=128), one OneAnt
-     PPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1 iteration under
-     torch.profiler: device time by kernel group, the
+     PPO, one MAT, one MADDPG training iteration (E=128), one recurrent
+     MAPPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1 iteration
+     under torch.profiler: device time by kernel group, the
      device's busy share (full lists in build/), and for both PPO runs a
      host-clock breakdown of one rollout step into its parts; it raises if
      B2's group (MAPPO, HATRPO) or B4's (FUSED_TOWER=1) shows no device time
@@ -762,6 +778,13 @@ def trainer_files_phase(fs, root, dev):
     print(f"phase 5e: {time.perf_counter() - t_phase:.1f} s")
 
 
+def patch_train_iter(cls, wrap):
+    """cls.train_iter replaced by wrap(the original); returns the undo."""
+    orig = cls.train_iter
+    cls.train_iter = wrap(orig)
+    return lambda: setattr(cls, "train_iter", orig)
+
+
 def sarl_zoo_phase(fs, fm, root, dev):
     """Phase 5f, the single-agent zoo and the other tasks, all through
     cli.train.main from cfg/ with fixed seeds, in build/smoke_5f/ (emptied
@@ -800,12 +823,6 @@ def sarl_zoo_phase(fs, fm, root, dev):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    def patched(cls, wrap):
-        """cls.train_iter replaced by wrap(the original); returns the undo."""
-        orig = cls.train_iter
-        cls.train_iter = wrap(orig)
-        return lambda: setattr(cls, "train_iter", orig)
-
     # (a) TRPO at E envs
     rows = []
 
@@ -814,7 +831,7 @@ def sarl_zoo_phase(fs, fm, root, dev):
         m, roll_s, upd_s = timed_iteration(self)
         rows.append((m, roll_s, upd_s, fs.substep_kernel.launches - n0, dict(self.last_search)))
         return m
-    restore = patched(TRPO, lambda orig: trpo_timed)
+    restore = patch_train_iter(TRPO, lambda orig: trpo_timed)
     try:
         trpo, secs = run("TenAnt", "trpo", "--num_envs", str(E), "--max_iterations", "2")
     finally:
@@ -858,7 +875,7 @@ def sarl_zoo_phase(fs, fm, root, dev):
                              {k: float(v) for k, v in m.items()}))
             return m
         return timed
-    restore = patched(OffPolicy, off_timed)
+    restore = patch_train_iter(OffPolicy, off_timed)
     trained = {}
     try:
         for algo, iters in (("sac", 6), ("td3", 10), ("ddpg", 10)):
@@ -950,6 +967,252 @@ def sarl_zoo_phase(fs, fm, root, dev):
     shutil.rmtree(work)
     print(f"phase 5f: {time.perf_counter() - t_phase:.1f} s")
     return trpo, sac, td3
+
+
+def marl_zoo_phase(fs, fm, root, dev):
+    """Phase 5g, the rest of the MARL zoo on TenAnt, in build/smoke_5g/
+    (emptied first, removed at its end; the modified YAMLs go there):
+    (a) MAT at cfg/mat (embed 64, 2 blocks, 1 head, episode_length 8, 5
+    epochs) and E envs: 1 warm-up iteration through MatRunner.run and 2
+    timed through rollout_phase / update_phase, each with exactly 24 B1 and
+    no B2-B5 launch and finite metrics; rollout ms, update ms, env-steps/s,
+    peak memory; then the cached decode against N full decodes on the card
+    at E envs, with one set of normal draws, at the CPU test's tolerance.
+    (b) MADDPG through cli.train.main at cfg/maddpg (save_interval 10) and
+    TenAnt.yaml's numEnvs: 10 iterations, the first 8 collect-only, then 2
+    with 8 gradient steps each, 24 B1 and no B2-B5 per iteration; the
+    ring's device bytes against R x E x 3,560 B (the 4.56 GB reckoned for
+    the bf16 ring); then --model_dir latest --test --headless
+    --episode_length 100: actors and critics bit for bit from
+    maddpg_10.ckpt, 300 B1.  (c) recurrent MAPPO through cli.train.main at
+    cfg/mappo with use_recurrent_policy (hidden 512, layer_N 2, L = T = 8)
+    at E envs, 2 timed iterations, and recurrent HAPPO (data_chunk_length
+    4, num_mini_batch 2) for 1; each iteration 24 B1 and no B2-B5 (the
+    recurrent nets are the flax-mirror MLPBase).  Returns the MAT, MADDPG
+    and recurrent MAPPO runners for the profiles."""
+    import shutil
+    import torch
+    from massive_marl_tpu_torch.algos.marl.maddpg import MaddpgRunner
+    from massive_marl_tpu_torch.algos.marl.mat import MatConfig, MatRunner
+    from massive_marl_tpu_torch.algos.marl.recurrent_runner import RecurrentMarlRunner
+    from massive_marl_tpu_torch.cli import train as cli
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    from massive_marl_tpu_torch.utils import yaml_lite
+    from massive_marl_tpu_torch.utils.tree import tree_leaves
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "smoke_5g")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counters = (fs.substep_kernel, fm.fwd_kernel, fm.bwd_kernel, fm.tower_fwd_kernel,
+                fm.tower_bwd_kernel)
+
+    def zero():
+        for k in counters:
+            k.launches = 0
+
+    counts = lambda: tuple(k.launches for k in counters)
+
+    def peak_gib(held):
+        """The peak since the last reset, and how far it rose above `held`
+        (the bytes other phases' trainers still hold)."""
+        peak = torch.cuda.max_memory_allocated()
+        return (f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the "
+                f"{held / 2**30:.2f} held before)")
+
+    def check(label, it, got, want, m):
+        if got != want or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label} iteration {it}: B1-B5 launches {got} (expected "
+                                 f"{want}), metrics {m}")
+
+    def yaml_copy(algo, edits):
+        with open(os.path.join(root, "cfg", algo, "config.yaml")) as fh:
+            text = fh.read()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"cfg/{algo}/config.yaml: no single {old!r}")
+            text = text.replace(old, new)
+        path = os.path.join(work, f"{algo}.yaml")
+        with open(path, "w") as fh:
+            fh.write(text)
+        return path
+
+    def run(algo, *extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main(["--task", "TenAnt", "--algo", algo, "--seed", "0",
+                        "--logdir", os.path.join(work, algo), *extra])
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) MAT at E envs
+    env = TenAntEnv(device=dev, seed=0)
+    mat = MatRunner(env, E, MatConfig.from_cfg_train(
+        yaml_lite.load(os.path.join(root, "cfg", "mat", "config.yaml"))), seed=0, device=dev,
+        print_log=False)
+    c = mat.cfg
+    want = (c.episode_length * env.spec.substeps, 0, 0, 0, 0)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mat.run(c.episode_length * E)
+    torch.cuda.synchronize()
+    check("MAT", 0, counts(), want, mat.last_metrics)
+    print(f"  MAT it 0 (warm-up, MatRunner.run): {1e3 * (time.perf_counter() - t0):.1f} ms, "
+          f"B1-B5 launches {counts()}")
+    rows = []
+    for it in (1, 2):
+        zero()
+        m, roll_s, upd_s = timed_iteration(mat)
+        check("MAT", it, counts(), want, m)
+        rows.append((roll_s, upd_s))
+        print(f"  MAT it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms, "
+              f"{c.episode_length * E / (roll_s + upd_s):.1f} env-steps/s; B1-B5 launches "
+              f"{counts()}; rew/step {m['mean_reward']:.4f}, value loss {m['value_loss']:.4f}, "
+              f"policy loss {m['policy_loss']:.5f}")
+    n_params = sum(x.numel() for x in tree_leaves(mat.state.params))
+    print(f"  MAT (E={E}, embed {c.embed}, {c.blocks} blocks, {c.heads} head, {n_params} "
+          f"parameters): rollout {statistics.median(1e3 * r for r, _ in rows):.1f} ms, update "
+          f"{statistics.median(1e3 * u for _, u in rows):.1f} ms (medians of 2), peak memory "
+          f"{peak_gib(held)}")
+    # the cached decode against N full decodes, one set of draws
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    draws = torch.randn((mat.N, E, mat.act_dim), generator=gen, device=dev)
+    it_draws = iter(draws)
+    mat._normal = lambda shape: next(it_draws)
+    try:
+        with torch.no_grad():
+            rep, _ = mat.model.encode(mat.state.params, mat._obs_view(mat.state.env_state.obs))
+            actions, mean, std = mat.decode_autoregressive(mat.state.params, rep)
+            ref = torch.zeros_like(actions)
+            for i in range(mat.N):
+                prev = torch.cat([torch.zeros_like(ref[:, :1]), ref[:, :-1]], 1)
+                m_full, s_full = mat.model.decode(mat.state.params, rep, prev)
+                ref[:, i] = m_full[:, i] + s_full[:, i] * draws[i]
+    finally:
+        del mat._normal
+    err = max(float((actions - ref).abs().max()), float((mean - m_full).abs().max()))
+    if not (torch.allclose(actions, ref, rtol=1e-5, atol=1e-5)
+            and torch.allclose(mean, m_full, rtol=1e-5, atol=1e-5) and torch.equal(std, s_full)):
+        raise AssertionError(f"MAT cached decode vs full decode at E={E}: max abs err {err}")
+    print(f"  MAT cached decode vs {mat.N} full decodes at E={E}: max abs err {err:.3g} "
+          f"(tolerance rtol 1e-5 + atol 1e-5, as tests/test_torch_mat.py)")
+
+    # (b) MADDPG at cfg/maddpg through the CLI
+    md_yaml = yaml_copy("maddpg", [("  save_interval: 1000\n", "  save_interval: 10\n")])
+    md_rows = []
+
+    def md_timed(orig):
+        def timed(self, update=True):
+            torch.cuda.synchronize()
+            zero()
+            g0 = self.grad_steps
+            t0 = time.perf_counter()
+            m = orig(self, update)
+            torch.cuda.synchronize()
+            md_rows.append((update, time.perf_counter() - t0, counts(), self.grad_steps - g0,
+                            {k: float(v) for k, v in m.items()}))
+            return m
+        return timed
+    restore = patch_train_iter(MaddpgRunner, md_timed)
+    try:
+        maddpg, secs = run("maddpg", "--max_iterations", "10", "--cfg_train", md_yaml)
+    finally:
+        restore()
+    c = maddpg.cfg
+    want = (c.nsteps * maddpg.env.spec.substeps, 0, 0, 0, 0)
+    collect = -(-c.batch_size // c.nsteps)
+    steps = c.nsteps * c.updates_per_step
+    for it, (upd, dt, got, g, m) in enumerate(md_rows):
+        check("MADDPG", it, got, want, m)
+        if upd != (it >= collect) or g != (steps if upd else 0):
+            raise AssertionError(f"MADDPG iteration {it}: training {upd}, {g} gradient steps "
+                                 f"(expected {steps} after {collect} collect-only iterations)")
+    if len(md_rows) != 10:
+        raise AssertionError(f"MADDPG: {len(md_rows)} iterations, expected 10")
+    rp = maddpg.state.replay
+    ring = rp.nbytes()
+    per_row = 2 * (2 * maddpg.N * maddpg.obs_dim + 2 * maddpg.share_dim
+                   + maddpg.N * maddpg.act_dim) + 2 * 4
+    if ring != c.replay_size * maddpg.num_envs * per_row or not rp.obs.is_cuda \
+            or rp.obs.dtype != torch.bfloat16:
+        raise AssertionError(f"MADDPG ring of {ring} B ({rp.obs.dtype} on {rp.obs.device}), "
+                             f"expected {c.replay_size * maddpg.num_envs * per_row} B of bf16 "
+                             "rows on the card")
+    coll_ms = statistics.median(1e3 * dt for upd, dt, *_ in md_rows if not upd)
+    train_ms = statistics.median(1e3 * dt for upd, dt, *_ in md_rows if upd)
+    print(f"  MADDPG (E={maddpg.num_envs}, hidden {c.hidden}x{c.layers}, batch {c.batch_size} "
+          f"rows = {c.batch_size * maddpg.num_envs} samples, R={c.replay_size}): {collect} "
+          f"collect-only iterations {coll_ms:.1f} ms (median), {len(md_rows) - collect} "
+          f"training iterations {train_ms:.1f} ms (median; {steps} gradient steps each), "
+          f"{c.nsteps * maddpg.num_envs / (train_ms / 1e3):.1f} env-steps/s training; B1-B5 "
+          f"launches {want} per iteration; ring {ring} B on the card ({per_row} B a row x "
+          f"{c.replay_size} x {maddpg.num_envs}; the bf16 ring reckoned at 4.56e9 B); critic "
+          f"loss " + ", ".join(f"{r[4]['critic_loss']:.4g}" for r in md_rows if r[0])
+          + f"; main() {secs:.1f} s")
+    zero()
+    tested, secs = run("maddpg", "--cfg_train", md_yaml, "--test", "--headless",
+                       "--episode_length", "100", "--model_dir", "latest")
+    n = fs.substep_kernel.launches
+    leaves = lambda r: tree_leaves(r.state.actor_params) + tree_leaves(r.state.critic_params)
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(leaves(maddpg), leaves(tested)))
+    path = os.path.join(work, "maddpg", "seed0", "maddpg_10.ckpt")
+    if not same or tested.state.iteration != 10 or n != 300 or not math.isfinite(tested.last_eval):
+        raise AssertionError(f"MADDPG --model_dir latest --test: bit for bit {same}, iteration "
+                             f"{tested.state.iteration}, {n} B1, return {tested.last_eval}")
+    print(f"  MADDPG --model_dir latest --test --headless (100 steps): actors and critics bit "
+          f"for bit from maddpg_10.ckpt ({os.path.getsize(path)} B), mean return "
+          f"{tested.last_eval:.3f}, {n} B1, main() {secs:.2f} s")
+    del tested
+    torch.cuda.empty_cache()
+
+    # (c) recurrent MAPPO and HAPPO through the CLI at E envs
+    rnn_rows = []
+
+    def rnn_timed(orig):
+        def timed(self):
+            zero()
+            m, roll_s, upd_s = timed_iteration(self)
+            rnn_rows.append((m, roll_s, upd_s, counts()))
+            return m
+        return timed
+    recurrent = [("use_recurrent_policy: false\n", "use_recurrent_policy: true\n")]
+    rnn = {}
+    for algo, iters, edits in (
+            ("mappo", 2, recurrent),
+            ("happo", 1, recurrent + [("data_chunk_length: null\n", "data_chunk_length: 4\n"),
+                                      ("num_mini_batch: 1\n", "num_mini_batch: 2\n")])):
+        rnn_rows.clear()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        restore = patch_train_iter(RecurrentMarlRunner, rnn_timed)
+        try:
+            r, secs = run(algo, "--num_envs", str(E), "--max_iterations", str(iters),
+                          "--cfg_train", yaml_copy(algo, edits))
+        finally:
+            restore()
+        c = r.cfg
+        if not isinstance(r, RecurrentMarlRunner) or r.use_fused or len(rnn_rows) != iters:
+            raise AssertionError(f"recurrent {algo}: {type(r).__name__}, fused {r.use_fused}, "
+                                 f"{len(rnn_rows)} iterations")
+        want = (c.episode_length * r.env.spec.substeps, 0, 0, 0, 0)
+        for it, (m, roll_s, upd_s, got) in enumerate(rnn_rows):
+            check(f"recurrent {algo}", it, got, want, m)
+            print(f"  recurrent {algo.upper()} it {it}: rollout {1e3 * roll_s:.1f} ms, update "
+                  f"{1e3 * upd_s:.1f} ms, {c.episode_length * E / (roll_s + upd_s):.1f} "
+                  f"env-steps/s; B1-B5 launches {got}; value loss {m['value_loss']:.4f}, "
+                  f"policy loss {m['policy_loss']:.5f}, rew/step {m['mean_reward']:.3f}")
+        print(f"  recurrent {algo.upper()} (E={E}, hidden {c.hidden_size}, layer_N {c.layer_n}, "
+              f"L={r.L} of T={c.episode_length}, {max(1, c.num_mini_batch)} minibatches): "
+              f"main() {secs:.1f} s, peak memory {peak_gib(held)}")
+        rnn[algo] = r
+    del rnn["happo"]
+    shutil.rmtree(work)
+    print(f"phase 5g: {time.perf_counter() - t_phase:.1f} s")
+    return mat, maddpg, rnn["mappo"]
 
 
 def check_ppo(ppo, it, m, launches, want, width):
@@ -1820,6 +2083,11 @@ def main() -> int:
     sarl = sarl_zoo_phase(fs, fm, root, dev)
     torch.cuda.empty_cache()
 
+    # ---- 5g. MAT, MADDPG and the recurrent runner on TenAnt
+    print("the rest of the MARL zoo on TenAnt (cfg/mat, cfg/maddpg, recurrent cfg/mappo, happo):")
+    zoo = marl_zoo_phase(fs, fm, root, dev)
+    torch.cuda.empty_cache()
+
     # ---- 6. TenAnt + MAPPO (then stacked, HAPPO, FUSED_TOWER=1, HATRPO) at full width
     marl_counts, tower_counts, (runner, tower, trpo) = marl_phase(dev)
 
@@ -1844,6 +2112,14 @@ def main() -> int:
     profile_iteration(ppo_one, os.path.join(root, "build", "profile_one_ant_iteration.txt"),
                       "OneAnt PPO")
     del ppo_arr, ppo_one
+    mat, maddpg, rnn_mappo = zoo
+    del zoo
+    profile_iteration(mat, os.path.join(root, "build", "profile_mat_iteration.txt"), "MAT")
+    profile_iteration(maddpg, os.path.join(root, "build", "profile_maddpg_iteration.txt"),
+                      f"MADDPG training iteration (E={maddpg.num_envs})", run=offpolicy_iteration)
+    profile_iteration(rnn_mappo, os.path.join(root, "build", "profile_rnn_mappo_iteration.txt"),
+                      "recurrent MAPPO")
+    del mat, maddpg, rnn_mappo
     b2_req = (("B2 dense_elu_ln fwd", fm.fwd_kernel),)
     profile_iteration(runner, os.path.join(root, "build", "profile_mappo_iteration.txt"),
                       "MAPPO", b2_req)

@@ -5,7 +5,12 @@
   * MarlActor: MLPBase, an orthogonal(0.01) mean head and a
     state-independent parameter with std = sigmoid(p / std_x_coef) *
     std_y_coef (init p = std_x_coef);
-  * MarlCritic: the same base and an orthogonal(sqrt 2) value head.
+  * MarlCritic: the same base and an orthogonal(sqrt 2) value head;
+  * MarlActorRNN / MarlCriticRNN: the same bases, then flax's GRUCell
+    ("GRUCell_0": ir/iz/in Dense with bias, hr/hz without, hn with; r and z
+    gate the input and hidden products, n = tanh(in(x) + r * hn(h)), h' =
+    (1 - z) n + z h), then the same heads.  The hidden state is multiplied
+    by `mask` (0 at an episode start) before the cell.
 
 Parameters are agent-stacked: nested dicts in the flax variable layout
 ("MLPBase_0" / "LayerNorm_0" / "Dense_0" / ...), every leaf with a leading
@@ -21,7 +26,8 @@ The roundings follow flax exactly:
   * LayerNorm(dtype=bf16) takes float32 statistics with flax's fast
     variance E[x^2] - E[x]^2 (clipped at 0), scales by rsqrt(var + eps) *
     scale and rounds the result to bf16; eps is 1e-6 everywhere.
-The heads compute in float32.
+The heads, and the GRU cell on the bf16 base output, compute in float32
+(flax Dense(dtype=None) promotes bf16 inputs to the float32 parameters).
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from massive_marl_tpu_torch.algos.rl.offpolicy import init_dense
 
 EPS = 1e-6  # flax.linen.LayerNorm default epsilon
 
@@ -153,6 +161,106 @@ class MarlCritic:
     def apply(self, p, x):
         """x [N, ..., in] -> values [N, ...]."""
         return dense_f32(p["Dense_0"], self.base.apply(p["MLPBase_0"], x)).squeeze(-1)
+
+
+def lecun_dense(num_agents: int, din: int, dout: int, generator):
+    """flax's default Dense init, agent-stacked: lecun_normal kernels [N, in,
+    out] and zero biases [N, out]."""
+    ds = [init_dense(din, dout, generator) for _ in range(num_agents)]
+    return {k: torch.stack([d[k] for d in ds]) for k in ("kernel", "bias")}
+
+
+def gru_init(num_agents: int, din: int, hidden: int, generator: torch.Generator):
+    """flax GRUCell's variables, agent-stacked: lecun_normal input kernels,
+    orthogonal recurrent ones, zero biases; hr and hz have no bias."""
+    p = {}
+    for gate in ("r", "z", "n"):
+        p["i" + gate] = lecun_dense(num_agents, din, hidden, generator)
+        p["h" + gate] = {"kernel": orthogonal(num_agents, (hidden, hidden), 1.0, generator)}
+    p["hn"]["bias"] = torch.zeros(num_agents, hidden)
+    return {k: p[k] for k in ("ir", "hr", "iz", "hz", "in", "hn")}
+
+
+def gru_inputs(p, x):
+    """flax GRUCell's input products ir(x), iz(x), in(x), biases included,
+    of agent-stacked x [N, ..., in] (float32)."""
+    return tuple(dense_f32(p[k], x) for k in ("ir", "iz", "in"))
+
+
+def gru_step(p, h, xr, xz, xn):
+    """flax GRUCell's update of h [N, ..., H] from its input products."""
+    hh = lambda name: _bmm(h, p[name]["kernel"])
+    r = torch.sigmoid(xr + hh("hr"))
+    z = torch.sigmoid(xz + hh("hz"))
+    n = torch.tanh(xn + r * (hh("hn") + _vec(p["hn"]["bias"], h)))
+    return (1.0 - z) * n + z * h
+
+
+def _masked(h, mask):
+    """h [N, ..., H] zeroed where mask [...] is 0 (an episode start)."""
+    return h * mask[..., None]
+
+
+def gru_seq(p, x, h, mask):
+    """The cell over a sequence: x [N, L, B, in], h [N, B, H] at its start,
+    mask [N or 1, L, B] -> hidden states [N, L, B, H].  The input products
+    run over all L steps at once."""
+    xs = gru_inputs(p, x)
+    out = []
+    for t in range(x.shape[1]):
+        h = gru_step(p, _masked(h, mask[:, t]), *(g[:, t] for g in xs))
+        out.append(h)
+    return torch.stack(out, 1)
+
+
+@dataclass(frozen=True)
+class MarlActorRNN(MarlActor):
+    """MLPBase -> GRUCell -> MarlActor's heads."""
+
+    def init(self, num_agents: int, obs_dim: int, generator: torch.Generator):
+        p = super().init(num_agents, obs_dim, generator)
+        return {"MLPBase_0": p["MLPBase_0"],
+                "GRUCell_0": gru_init(num_agents, self.hidden_size, self.hidden_size, generator),
+                "Dense_0": p["Dense_0"], "std_param": p["std_param"]}
+
+    def apply(self, p, obs, h, mask):
+        """obs [N, ..., obs_dim], h [N, ..., H], mask [...] -> (mean, std,
+        new h)."""
+        x = self.base.apply(p["MLPBase_0"], obs)
+        h = gru_step(p["GRUCell_0"], _masked(h, mask), *gru_inputs(p["GRUCell_0"], x))
+        mean = dense_f32(p["Dense_0"], h)
+        return mean, _vec(self.std(p), mean).expand(mean.shape), h
+
+    def apply_seq(self, p, obs, h, mask):
+        """obs [N, L, B, obs_dim] from hiddens h [N, B, H], mask [N or 1, L,
+        B] -> (mean, std), each [N, L, B, act_dim]."""
+        hs = gru_seq(p["GRUCell_0"], self.base.apply(p["MLPBase_0"], obs), h, mask)
+        mean = dense_f32(p["Dense_0"], hs)
+        return mean, _vec(self.std(p), mean).expand(mean.shape)
+
+
+@dataclass(frozen=True)
+class MarlCriticRNN(MarlCritic):
+    """MLPBase -> GRUCell -> MarlCritic's value head."""
+
+    def init(self, num_agents: int, in_dim: int, generator: torch.Generator):
+        p = super().init(num_agents, in_dim, generator)
+        return {"MLPBase_0": p["MLPBase_0"],
+                "GRUCell_0": gru_init(num_agents, self.hidden_size, self.hidden_size, generator),
+                "Dense_0": p["Dense_0"]}
+
+    def apply(self, p, x, h, mask):
+        """x [N, ..., in], h [N, ..., H], mask [...] -> (values [N, ...],
+        new h)."""
+        feat = self.base.apply(p["MLPBase_0"], x)
+        h = gru_step(p["GRUCell_0"], _masked(h, mask), *gru_inputs(p["GRUCell_0"], feat))
+        return dense_f32(p["Dense_0"], h).squeeze(-1), h
+
+    def apply_seq(self, p, x, h, mask):
+        """x [N, L, B, in] from hiddens h [N, B, H], mask [N or 1, L, B] ->
+        values [N, L, B]."""
+        hs = gru_seq(p["GRUCell_0"], self.base.apply(p["MLPBase_0"], x), h, mask)
+        return dense_f32(p["Dense_0"], hs).squeeze(-1)
 
 
 def normal_log_prob(mean, std, actions):

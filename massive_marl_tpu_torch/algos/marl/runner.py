@@ -277,6 +277,24 @@ class MarlTrainState:
     ep_count: torch.Tensor | None = None     # [E] completed episodes
 
 
+def episode_returns(st, traj) -> Dict[str, torch.Tensor]:
+    """Advance st's per-env episode-return accumulators (ep_ret,
+    last_ep_ret, ep_count; reference runner.py:145-163) over traj's [T, E]
+    reward and done; the mean return of the envs' last completed episodes
+    and the number of envs with one."""
+    ep, last, cnt = st.ep_ret, st.last_ep_ret, st.ep_count
+    for r, d in zip(traj["reward"], traj["done"]):
+        ep = ep + r
+        fin = d > 0
+        last = torch.where(fin, ep, last)
+        cnt = cnt + fin.to(torch.int32)
+        ep = torch.where(fin, 0.0, ep)
+    st.ep_ret, st.last_ep_ret, st.ep_count = ep, last, cnt
+    have = cnt > 0
+    return dict(episode_rewards=torch.where(have, last, 0.0).sum() / torch.clamp_min(have.sum(), 1),
+                episodes_done=have.sum())
+
+
 def _flat(ts):
     return torch.cat([t.reshape(-1) for t in ts])
 
@@ -765,22 +783,9 @@ class MarlRunner:
         else:
             aloss, vloss = self._stacked(data, share)
 
-        # episode returns (reference runner.py:145-163 accumulator semantics)
-        ep, last, cnt = st.ep_ret, st.last_ep_ret, st.ep_count
-        for r, d in zip(traj["reward"], traj["done"]):
-            ep = ep + r
-            fin = d > 0
-            last = torch.where(fin, ep, last)
-            cnt = cnt + fin.to(torch.int32)
-            ep = torch.where(fin, 0.0, ep)
-        st.ep_ret, st.last_ep_ret, st.ep_count = ep, last, cnt
-        have = cnt > 0
         st.iteration += 1
         return dict(mean_reward=traj["reward"].mean(), value_loss=vloss, policy_loss=aloss,
-                    done_frac=traj["done"].mean(),
-                    episode_rewards=torch.where(have, last, 0.0).sum()
-                    / torch.clamp_min(have.sum(), 1),
-                    episodes_done=have.sum())
+                    done_frac=traj["done"].mean(), **episode_returns(st, traj))
 
     def train_iter(self):
         traj = self.rollout_phase()

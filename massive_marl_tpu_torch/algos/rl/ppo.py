@@ -94,18 +94,19 @@ class AdamState:
     count: int = 0
 
 
-def adam_update(params, grads, opt: AdamState, lr, max_grad_norm: float | None = None):
-    """optax's chain(clip_by_global_norm(max_grad_norm), adam(lr)) applied
-    in place: the gradients scaled onto the norm ball when their global
-    norm exceeds max_grad_norm (None: no clipping), then Adam (b1 0.9, b2
-    0.999, eps 1e-8) with bias correction, params -= lr * update.  `lr` is
-    a float or a 0-d tensor."""
+def adam_update(params, grads, opt: AdamState, lr, max_grad_norm: float | None = None,
+                eps: float = 1e-8):
+    """optax's chain(clip_by_global_norm(max_grad_norm), adam(lr, eps=eps))
+    applied in place: the gradients scaled onto the norm ball when their
+    global norm exceeds max_grad_norm (None: no clipping), then Adam (b1
+    0.9, b2 0.999) with bias correction, params -= lr * update.  `lr` is a
+    float or a 0-d tensor."""
     if max_grad_norm is not None:
         g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(g_norm < max_grad_norm, torch.ones_like(g_norm),
                             max_grad_norm / g_norm)
         grads = torch._foreach_mul(grads, scale)
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    b1, b2 = 0.9, 0.999
     opt.count += 1
     torch._foreach_lerp_(opt.mu, grads, 1 - b1)
     torch._foreach_mul_(opt.nu, b2)

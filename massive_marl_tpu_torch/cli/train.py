@@ -1,13 +1,20 @@
 """CLI trainer of the port (twin of massive_marl_tpu/cli/train.py): the
 single-agent algorithms PPO, TRPO, DDPG, TD3 and SAC on every task (OneAnt,
 TenAnt, MultiAntCircle, MultiIngenuity; a task of many agents through its
-joint-action interface), and MAPPO/IPPO/HAPPO/HATRPO on the tasks of many
-agents.
+joint-action interface), and MAPPO/IPPO/HAPPO/HATRPO (with GRU policies
+when the train YAML sets use_recurrent_policy), MAT and MADDPG on the tasks
+of many agents.
 
     python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo ppo \
         --num_envs 4096 --max_iterations 100 [--randomize] [--logdir DIR]
     python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo mappo \
         --num_envs 4096 --num_env_steps 2000000
+    python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo mat \
+        --num_envs 4096 --max_iterations 100
+    python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo maddpg \
+        --max_iterations 100
+    python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo mappo \
+        --cfg_train my_recurrent_mappo.yaml --num_envs 4096 --max_iterations 10
     python -m massive_marl_tpu_torch.cli.train --task OneAnt --algo ppo \
         --num_envs 4096 --max_iterations 100 --fused_kernel 0
     python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo trpo|ddpg|td3|sac \
@@ -25,12 +32,14 @@ command line's overrides (utils/config.load_cfg): --num_envs (the YAML
 says 128), --episode_length, --randomize (task.randomize: domain
 randomization from the env YAML's randomization_params) and --seed (-1, the
 default, draws one).  --max_iterations caps a single-agent trainer's
-iterations, and gives a MARL run max_iterations x episode_length x
-num_envs steps unless --num_env_steps is set.  --fused_kernel sets the env's sim.fused_kernel: 0
-steps the physics on the array engine, 1 or auto (the YAML's default) on
-the substep kernel.  FUSED_TOWER=1 in the environment runs the MARL
-update's towers on kernels B4/B5.  Runs on CUDA unless --device cpu (or
---rl_device cpu) is given.
+and MADDPG's iterations, and gives another MARL run max_iterations x
+episode_length x num_envs steps unless --num_env_steps is set.
+--fused_kernel sets the env's sim.fused_kernel: 0 steps the physics on the
+array engine, 1 or auto (the YAML's default) on the substep kernel.
+FUSED_TOWER=1 in the environment runs the MARL update's towers on kernels
+B4/B5.  Runs on CUDA unless --device cpu (or --rl_device cpu) is given.  MAT, MADDPG and the recurrent runner have no
+viewer policy: --test without --headless prints that the export was
+skipped, as the JAX CLI does.
 
 The trainers log to <logdir>/seed<seed> (metrics.csv and a tfevents file)
 and save checkpoints there every save_interval iterations, in the JAX
@@ -53,12 +62,8 @@ from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
 from massive_marl_tpu_torch.utils import config as cfg_mod
 from massive_marl_tpu_torch.utils.registry import build_env
 
-# the MARL algorithms the port's runner implements
-MARL_PORTED = ("mappo", "ippo", "happo", "hatrpo")
-# where ROADMAP.md queues the others
-NOT_PORTED = {"mat": "A.7", "maddpg": "A.7",
-              **{a: "A.8" for a in cfg_mod.MTRL_ALGOS + cfg_mod.METARL_ALGOS
-                 + cfg_mod.OFFRL_ALGOS}}
+# where ROADMAP.md queues the algorithms still to port
+NOT_PORTED = {a: "A.8" for a in cfg_mod.MTRL_ALGOS + cfg_mod.METARL_ALGOS + cfg_mod.OFFRL_ALGOS}
 # env steps per timed chunk of --random_actions
 BENCH_CHUNK = 256
 
@@ -115,6 +120,25 @@ def process_sarl(args, env, cfg_train, logdir, num_envs):
         return TRPO(env, num_envs, TRPOConfig.from_cfg_train(cfg_train), **kw)
     from massive_marl_tpu_torch.algos.rl.offpolicy import OffPolicy, OffPolicyConfig
     return OffPolicy(env, num_envs, OffPolicyConfig.from_cfg_train(cfg_train, algo), **kw)
+
+
+def process_marl(algo, env, cfg_train, num_envs, kw):
+    """The MARL runner of --algo, configured from its train YAML (as the JAX
+    CLI routes them): MAT, MADDPG, or MAPPO/IPPO/HAPPO/HATRPO on the
+    recurrent runner when use_recurrent_policy is set, else on the
+    feed-forward one."""
+    if algo == "mat":
+        from massive_marl_tpu_torch.algos.marl.mat import MatConfig, MatRunner
+        return MatRunner(env, num_envs, MatConfig.from_cfg_train(cfg_train), **kw)
+    if algo == "maddpg":
+        from massive_marl_tpu_torch.algos.marl.maddpg import MaddpgConfig, MaddpgRunner
+        return MaddpgRunner(env, num_envs, MaddpgConfig.from_cfg_train(cfg_train), **kw)
+    from massive_marl_tpu_torch.algos.marl.runner import MarlConfig, MarlRunner
+    mc = MarlConfig.from_cfg_train(cfg_train, algo)
+    if mc.use_recurrent_policy:
+        from massive_marl_tpu_torch.algos.marl.recurrent_runner import RecurrentMarlRunner
+        return RecurrentMarlRunner(env, num_envs, mc, **kw)
+    return MarlRunner(env, num_envs, mc, **kw)
 
 
 def _restore(args, restore, logdir):
@@ -179,7 +203,7 @@ def main(argv=None):
         return bench_random_actions(args, cfg, num_envs)
     if algo in NOT_PORTED:
         raise NotImplementedError(f"--algo {algo} is not ported yet (ROADMAP {NOT_PORTED[algo]})")
-    if args.task == "OneAnt" and algo in MARL_PORTED:
+    if args.task == "OneAnt" and algo in cfg_mod.MARL_ALGOS:
         raise SystemExit(f"OneAnt is a single-agent task: --algo one of {cfg_mod.SARL_ALGOS}")
     # --play alone also evaluates (reference config.py:288-294); --resume N
     # resumes from the newest checkpoint in the logdir
@@ -187,13 +211,10 @@ def main(argv=None):
     if args.resume > 0 and not args.model_dir:
         args.model_dir = "latest"
 
-    if algo in MARL_PORTED:
-        from massive_marl_tpu_torch.algos.marl.runner import MarlConfig, MarlRunner
+    if algo in cfg_mod.MARL_ALGOS:
         env = build_env(args.task, cfg, multi_agent=True, device=args.device, seed=seed)
-        mc = MarlConfig.from_cfg_train(cfg_train, algo)
-        if mc.use_recurrent_policy:
-            raise NotImplementedError("the recurrent MARL runner is not ported yet (ROADMAP A.7)")
-        runner = MarlRunner(env, num_envs, mc, seed=seed, log_dir=logdir, device=args.device)
+        runner = process_marl(algo, env, cfg_train, num_envs,
+                              dict(seed=seed, log_dir=logdir, device=args.device))
         _restore(args, runner.restore, logdir)
         if args.test:
             runner.last_eval = runner.eval()
@@ -201,9 +222,12 @@ def main(argv=None):
             if not args.headless:
                 export_viewer(env, runner, logdir, args.task)
             return runner
+        if algo == "maddpg":        # an off-policy runner counts iterations
+            runner.run(args.max_iterations or None)
+            return runner
         steps = args.num_env_steps or None
         if steps is None and args.max_iterations > 0:
-            steps = args.max_iterations * mc.episode_length * num_envs
+            steps = args.max_iterations * runner.cfg.episode_length * num_envs
         runner.run(steps)
         return runner
 

@@ -125,17 +125,20 @@ def eval_generator(seed: int, device, iteration: int | None = None) -> torch.Gen
 
 
 @torch.no_grad()
-def evaluate_episodes(env, num_envs: int, policy: Callable, generator: torch.Generator) -> float:
+def evaluate_episodes(env, num_envs: int, policy: Callable, generator: torch.Generator,
+                      with_done: bool = False) -> float:
     """Mean return of one episode in each of `num_envs` dedicated envs,
     reset from `generator` and stepped `env.max_episode_length` times with
-    actions = policy(obs): each env's reward is summed until its first
-    `done`."""
+    actions = policy(obs), or policy(obs, done) when `with_done` (a
+    recurrent policy resets its hidden state where done): each env's
+    reward is summed until its first `done`."""
     with env_generator(env, generator):
         state = env.reset(num_envs)
         ret = torch.zeros(num_envs, device=state.obs.device)
         alive = torch.ones(num_envs, dtype=torch.bool, device=state.obs.device)
         for _ in range(int(env.max_episode_length)):
-            state = env.step_batch(state, policy(state.obs))
+            actions = policy(state.obs, state.done) if with_done else policy(state.obs)
+            state = env.step_batch(state, actions)
             ret = ret + torch.where(alive, state.reward, 0.0)
             alive = alive & ~state.done
     return float(ret.mean())

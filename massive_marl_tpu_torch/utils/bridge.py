@@ -17,7 +17,17 @@ their state), so a file written by either package restores in the other:
   (massive_marl_tpu/algos/rl/trpo.py:310-316), no optimizer state;
 * DDPG/TD3/SAC: {"params", "target_params", "iteration"}
   (massive_marl_tpu/algos/rl/offpolicy.py:460-465), the networks in flax's
-  own layout, which the port's off-policy trainer keeps.
+  own layout, which the port's off-policy trainer keeps;
+* MAT: {"params", "iteration"} (massive_marl_tpu/algos/marl/mat.py:470-483),
+  params the MatModel variables {"params": {"encoder", "decoder"}};
+* MADDPG: {"actor_params", "critic_params", "iteration"}
+  (massive_marl_tpu/algos/marl/maddpg.py:329-346), agent-stacked
+  variables {"params": {"Dense_i"}};
+* the recurrent MARL runner writes the MARL file, its GRU leaves
+  ("GRUCell_0": {ir, iz, in: {kernel, bias}, hr, hz: {kernel}, hn:
+  {kernel, bias}}) beside the MLPBase ones.
+MAT, MADDPG and the MARL nets keep flax's layout in the port, so their
+trees go into a file as they are and come out checked key for key.
 """
 from __future__ import annotations
 
@@ -223,9 +233,7 @@ def offpolicy_state_from_flax(state, params, target_params):
     iteration), checked key for key against the trainer's own trees: a file
     of another algorithm (another set of networks, another number of
     layers, a learned temperature or none) raises ValueError."""
-    skeleton = lambda tree: {k: skeleton(v) for k, v in tree.items()} \
-        if isinstance(tree, dict) else None
-    check_keys({"params": skeleton(params), "target_params": skeleton(target_params),
+    check_keys({"params": _skeleton(params), "target_params": _skeleton(target_params),
                 "iteration": None}, state, what="off-policy checkpoint")
     return state["params"], state["target_params"], int(state["iteration"])
 
@@ -236,14 +244,80 @@ def _tree_to_torch(tree):
     return torch.from_numpy(np.array(tree, np.float32))
 
 
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)
+
+
+def _skeleton(tree):
+    """tree's dict keys at every level, leaves None (for check_keys)."""
+    return {k: _skeleton(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+
 def marl_params_from_flax(actor_vars, critic_vars):
-    """jax.vmap-initialised MarlActor / MarlCritic variables ({"params":
-    {...}}, every leaf with a leading agent axis N) -> the port's
-    agent-stacked (actor, critic) parameter trees.  Both packages keep
-    flax's layout ([N, in, out] Dense kernels, the same key names), so the
-    leaves carry over as they are; copy them into a runner's state by key
+    """jax.vmap-initialised MarlActor / MarlCritic variables, or
+    MarlActorRNN / MarlCriticRNN ones ({"params": {...}}, every leaf with a
+    leading agent axis N) -> the port's agent-stacked (actor, critic)
+    parameter trees.  Both packages keep flax's layout ([N, in, out] Dense
+    kernels, the same key names, GRUCell_0's gates included), so the leaves
+    carry over as they are; copy them into a runner's state by key
     (utils.tree.tree_map) to keep its leaf order."""
     return _tree_to_torch(actor_vars["params"]), _tree_to_torch(critic_vars["params"])
+
+
+def mat_params_from_flax(variables):
+    """MatModel variables ({"params": {"encoder", "decoder"}}, numpy
+    leaves) -> the port's MAT parameter tree (the same layout, float32
+    tensors)."""
+    return _tree_to_torch(variables)
+
+
+def mat_params_to_flax(params):
+    """The port's MAT parameter tree -> MatModel variables as numpy arrays."""
+    return _tree_to_numpy(params)
+
+
+def mat_state_to_flax(params, iteration: int):
+    """The JAX MAT checkpoint tree {"params", "iteration"}."""
+    return {"params": params, "iteration": _int32(iteration)}
+
+
+def mat_state_from_flax(state, params):
+    """A decoded JAX MAT checkpoint -> (params, iteration), checked key for
+    key against the runner's own tree `params` (a file of another algorithm,
+    or of another number of blocks, raises ValueError)."""
+    check_keys({"params": _skeleton(params), "iteration": None}, state, what="MAT checkpoint")
+    return state["params"], int(state["iteration"])
+
+
+def maddpg_params_from_flax(actor_vars, critic_vars):
+    """jax.vmap-initialised MADDPG actor / critic variables ({"params":
+    {"Dense_i"}}, every leaf with a leading agent axis N) -> the port's
+    (actor, critic) trees in the same layout."""
+    return _tree_to_torch(actor_vars), _tree_to_torch(critic_vars)
+
+
+def maddpg_params_to_flax(actor, critic):
+    """The port's MADDPG (actor, critic) trees -> flax variables as numpy
+    arrays."""
+    return _tree_to_numpy(actor), _tree_to_numpy(critic)
+
+
+def maddpg_state_to_flax(actor, critic, iteration: int):
+    """The JAX MADDPG checkpoint tree {"actor_params", "critic_params",
+    "iteration"}."""
+    return {"actor_params": actor, "critic_params": critic, "iteration": _int32(iteration)}
+
+
+def maddpg_state_from_flax(state, actor, critic):
+    """A decoded JAX MADDPG checkpoint -> (actor, critic, iteration),
+    checked key for key against the runner's own trees (a TRPO file, whose
+    top-level keys are the same, or other widths of layers, raise
+    ValueError)."""
+    check_keys({"actor_params": _skeleton(actor), "critic_params": _skeleton(critic),
+                "iteration": None}, state, what="MADDPG checkpoint")
+    return state["actor_params"], state["critic_params"], int(state["iteration"])
 
 
 SYSTEM_FIELDS = ("parent", "point_body", "point_sensor", "num_sensors",

@@ -21,10 +21,13 @@
   and generator, with the first-done masking.
 * TRPO, DDPG, TD3 and SAC train through main() from cfg/ (copies with
   narrow widths, short rollouts and a small ring), write model_<it>.ckpt,
-  and --model_dir latest --test evaluates the restored policy; OneAnt takes
+  and --model_dir latest --test evaluates the restored policy; MAT, MADDPG
+  and recurrent MAPPO the same with mat_/maddpg_/marl_<it>.ckpt, their
+  viewer export skipped as in the JAX CLI; OneAnt takes
   every single-agent algorithm; MultiAntCircle and MultiIngenuity build
   and train through main() and make(); the algorithms still to port are
-  refused by name with their ROADMAP item.
+  refused by name with their ROADMAP item, and a MARL algorithm (MAT
+  included) on OneAnt.
 """
 import dataclasses
 import json
@@ -152,6 +155,18 @@ def cfgs(tmp_path_factory):
         out[algo] = _edit_yaml(f"{root}/{algo}/config.yaml", d / f"{algo}.yaml",
                                {"save_interval": 1, "nsteps": 2, "noptepochs": 1,
                                 "hidden_nodes": 16, "replay_size": 6, "batch_size": 2})
+    (d / "mat_src.yaml").write_text(open(f"{root}/mat/config.yaml").read()
+                                    + "save_interval: 200\n")
+    out["mat"] = _edit_yaml(d / "mat_src.yaml", d / "mat.yaml",
+                            {"embed": 16, "ppo_epoch": 1, "save_interval": 1,
+                             "episode_length": 4})
+    out["maddpg"] = _edit_yaml(f"{root}/maddpg/config.yaml", d / "maddpg.yaml",
+                               {"save_interval": 1, "nsteps": 2, "hidden_nodes": 16,
+                                "hidden_layer": 1, "replay_size": 6, "batch_size": 2})
+    out["mappo_rnn"] = _edit_yaml(f"{root}/mappo/config.yaml", d / "mappo_rnn.yaml",
+                                  {"hidden_size": 16, "ppo_epoch": 1, "save_interval": 1,
+                                   "use_recurrent_policy": "true", "data_chunk_length": 2,
+                                   "episode_length": 4})
     for task in ("OneAnt", "TenAnt"):
         out[task] = _edit_yaml(f"{root}/{task}.yaml", d / f"{task}.yaml", {"substeps": 1})
     for task in ("MultiAntCircle", "MultiIngenuity"):
@@ -159,10 +174,10 @@ def cfgs(tmp_path_factory):
     return out
 
 
-def _argv(cfgs, task, algo, logdir, *extra):
+def _argv(cfgs, task, algo, logdir, *extra, cfg_train=None):
     return ["--task", task, "--algo", algo, "--num_envs", "4", "--seed", "2", "--device", "cpu",
-            "--logdir", str(logdir), "--cfg_train", cfgs[algo], "--cfg_env", cfgs[task],
-            "--episode_length", "4", *extra]
+            "--logdir", str(logdir), "--cfg_train", cfgs[cfg_train or algo],
+            "--cfg_env", cfgs[task], "--episode_length", "4", *extra]
 
 
 def test_random_actions(cfgs, tmp_path, monkeypatch, capsys):
@@ -299,6 +314,42 @@ def test_sarl_trains_and_tests(cfgs, tmp_path, algo):
     assert all(torch.equal(a, b) for a, b in zip(same(run), same(tested)))
 
 
+@pytest.mark.parametrize("algo,cfg_train,prefix", [("mat", None, "mat"),
+                                                   ("maddpg", None, "maddpg"),
+                                                   ("mappo", "mappo_rnn", "marl")])
+def test_marl_zoo_trains_and_tests(cfgs, tmp_path, monkeypatch, capsys, algo, cfg_train,
+                                   prefix):
+    """MAT, MADDPG and recurrent MAPPO train 2 iterations through main()
+    (MADDPG's first collects only), write their checkpoints, and --model_dir
+    latest --test restores them and evaluates; the viewer export, which has
+    no policy for these runners, prints that it was skipped."""
+    from massive_marl_tpu_torch.algos.marl.recurrent_runner import RecurrentMarlRunner
+    run = p_train.main(_argv(cfgs, "TenAnt", algo, tmp_path, "--max_iterations", "2",
+                             cfg_train=cfg_train))
+    assert run.state.iteration == 2 and all(np.isfinite(v) for v in run.last_metrics.values())
+    assert (algo != "mappo") or isinstance(run, RecurrentMarlRunner)
+    if algo == "maddpg":
+        assert run.grad_steps == 2 and run.state.replay.count == 4
+    d = tmp_path / "seed2"
+    assert {f"{prefix}_1.ckpt", f"{prefix}_2.ckpt", "metrics.csv"} <= set(os.listdir(d))
+    monkeypatch.setenv("VIEWER_STEPS", "3")
+    capsys.readouterr()
+    tested = p_train.main(_argv(cfgs, "TenAnt", algo, tmp_path, "--test", "--model_dir",
+                                "latest", cfg_train=cfg_train))
+    out = capsys.readouterr().out
+    assert "eval mean episode reward:" in out and "viewer export skipped" in out
+    assert np.isfinite(tested.last_eval) and tested.state.iteration == 2
+    params = (lambda r: tree_leaves(r.state.params)) if algo == "mat" else \
+        (lambda r: tree_leaves(r.state.actor_params) + tree_leaves(r.state.critic_params))
+    assert all(torch.equal(a, b) for a, b in zip(params(run), params(tested)))
+    assert not os.path.exists(d / "viewer_TenAnt.html")
+
+
+def test_one_ant_refuses_mat():
+    with pytest.raises(SystemExit, match="single-agent task"):
+        p_train.main(["--task", "OneAnt", "--algo", "mat", "--device", "cpu"])
+
+
 def test_one_ant_takes_every_sarl_algorithm(cfgs, tmp_path):
     for algo in ("sac", "trpo"):
         t = p_train.main(_argv(cfgs, "OneAnt", algo, tmp_path, "--max_iterations", "1"))
@@ -326,8 +377,8 @@ def test_other_tasks_build_and_train(cfgs, tmp_path, task):
     assert torch.isfinite(o).all() and torch.isfinite(r).all()
 
 
-@pytest.mark.parametrize("algo,item", [("mat", "A.7"), ("maddpg", "A.7"), *(
-    (a, "A.8") for a in p_config.MTRL_ALGOS + p_config.METARL_ALGOS + p_config.OFFRL_ALGOS)])
+@pytest.mark.parametrize("algo,item", [
+    (a, "A.8") for a in p_config.MTRL_ALGOS + p_config.METARL_ALGOS + p_config.OFFRL_ALGOS])
 def test_unported_algorithms_refused_by_name(algo, item):
     with pytest.raises(NotImplementedError, match=f"--algo {algo} is not ported yet "
                                                   rf"\(ROADMAP {item}\)"):

@@ -9,7 +9,12 @@
   package's field by field on cfg/ppo and cfg/{mappo,ippo,happo,hatrpo}.
 * `python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo ppo`
   trains what `massive_marl_tpu.cli.train` trains: the same env spec, env
-  count and PPOConfig (both trainers' run is replaced by a no-op).
+  count and PPOConfig (both trainers' run is replaced by a no-op); the same
+  for --algo mat, --algo maddpg and --algo mappo with a
+  use_recurrent_policy YAML (the recurrent runner), each to the runner's
+  class and configuration.
+* The CLI refuses what is not ported yet by its ROADMAP item, and a MARL
+  algorithm on OneAnt.
 """
 import dataclasses
 
@@ -111,9 +116,38 @@ def test_cli_trains_what_the_jax_cli_trains(monkeypatch):
     assert _fields(port.cfg) == _fields(ref.cfg)
 
 
+@pytest.mark.parametrize("algo,recurrent", [("mat", False), ("maddpg", False),
+                                            ("mappo", True)])
+def test_cli_builds_the_marl_runner_the_jax_cli_builds(algo, recurrent, monkeypatch, tmp_path):
+    from massive_marl_tpu.algos.marl import maddpg as j_maddpg, mat as j_mat
+    from massive_marl_tpu.algos.marl import recurrent_runner as j_rec
+    from massive_marl_tpu_torch.algos.marl import maddpg as p_maddpg, mat as p_mat
+    from massive_marl_tpu_torch.algos.marl import recurrent_runner as p_rec
+    for cls in (j_mat.MatRunner, j_maddpg.MaddpgRunner, j_rec.RecurrentMarlRunner,
+                p_mat.MatRunner, p_maddpg.MaddpgRunner, p_rec.RecurrentMarlRunner):
+        monkeypatch.setattr(cls, "run", lambda self, *a, **k: self.state)
+    argv = ["--task", "TenAnt", "--algo", algo, "--seed", "5", "--num_envs", "16"]
+    if recurrent:
+        src = open(f"{p_config.CFG_ROOT}/{algo}/config.yaml").read()
+        assert src.count("use_recurrent_policy: false\n") == 1
+        path = tmp_path / "recurrent.yaml"
+        path.write_text(src.replace("use_recurrent_policy: false\n",
+                                    "use_recurrent_policy: true\n"))
+        argv += ["--cfg_train", str(path)]
+    port = p_cli.main(argv + ["--device", "cpu"])
+    ref = j_cli.train(j_config.get_args(argv))
+    assert type(port).__name__ == type(ref).__name__ == \
+        {"mat": "MatRunner", "maddpg": "MaddpgRunner"}.get(algo, "RecurrentMarlRunner")
+    assert port.num_envs == ref.num_envs == 16 and port.seed == ref.seed == 5
+    assert (port.N, port.obs_dim, port.act_dim) == (ref.N, ref.obs_dim, ref.act_dim) == (10, 46, 8)
+    assert _spec_view(port.env) == _spec_view(ref.env)
+    assert _fields(port.cfg) == _fields(ref.cfg)
+    assert getattr(port.cfg, "use_recurrent_policy", False) == recurrent
+
+
 def test_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        p_cli.main(["--algo", "mat", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        p_cli.main(["--algo", "mamlppo", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         p_cli.main(["--algo", "mtppo", "--device", "cpu"])
     with pytest.raises(SystemExit):

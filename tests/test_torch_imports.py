@@ -38,6 +38,9 @@ def test_scan_sees_the_whole_port():
                  "massive_marl_tpu_torch/algos/marl/nets.py",
                  "massive_marl_tpu_torch/algos/marl/fused_nets.py",
                  "massive_marl_tpu_torch/algos/marl/runner.py",
+                 "massive_marl_tpu_torch/algos/marl/recurrent_runner.py",
+                 "massive_marl_tpu_torch/algos/marl/mat.py",
+                 "massive_marl_tpu_torch/algos/marl/maddpg.py",
                  "massive_marl_tpu_torch/wrap/vec_task.py",
                  "massive_marl_tpu_torch/utils/tree.py",
                  "massive_marl_tpu_torch/utils/msgpack_lite.py",
