@@ -116,6 +116,26 @@ Phases; any failure raises and the script exits non-zero:
      4, num_mini_batch 2) for 1, through cli.train.main: 24 B1 and no
      B2-B5 per iteration.  Its YAMLs and files go under build/smoke_5g/,
      removed at its end; it prints its seconds;
+  5h. the multi-task, meta and offline trainers through cli.train.main,
+     with build/smoke_5h/ as the working directory (its YAML copies,
+     logs and ./datasets go there; removed at its end; it prints its
+     seconds): MTPPO and MTTRPO on OneAnt + MultiAntCircle at cfg/
+     widths (1024-1024-512) and --num_envs 4096 per task, 2 iterations
+     each with exactly 24 B1 (OneAnt: 8 steps x 3 substeps; the array
+     engine steps MultiAntCircle) and no B2-B5 launch, env-steps/s =
+     8 x 4096 x 2 / iteration seconds, and model_2.ckpt restored bit for
+     bit into a fresh trainer; MTSAC at the YAML's numEnvs 128 for 4
+     iterations (the first collect-only, then 4 gradient steps each, 24
+     B1 each), its float32 ring's device bytes (5000 x 128 x 696 B);
+     random for 2 iterations (48 B1); MAML-PPO on TenAnt at --num_envs
+     4096 for 2 meta-iterations (192 B1 each: 4 slots x 16 steps x 3),
+     then eval_adaptation(n_tasks=2) with 144 B1 and its pre and post
+     rewards; ppo_collect on OneAnt at --num_envs 4096 for 1 iteration
+     with collect_steps 65,536 (72 B1), then TD3+BC, BCQ and IQL on that
+     dataset for 200 steps each (the YAMLs' 100,000 cut), each followed
+     by its online evaluation (64 envs x 1,000 steps: 3,000 B1); train
+     steps/s and evaluation seconds.  Every reward, loss and pre/post
+     value finite, every trainer and env on the card;
   6. TenAnt + MAPPO at full width (MarlConfig(): N=10, hidden 512, 3 fused
      blocks per tower, episode_length 8, 5 epochs, E=4096, the sequential
      schedule): 1 warm-up iteration through MarlRunner.run and 3 timed
@@ -1215,6 +1235,268 @@ def marl_zoo_phase(fs, fm, root, dev):
     return mat, maddpg, rnn["mappo"]
 
 
+def other_algos_phase(fs, fm, root, dev):
+    """Phase 5h: the multi-task, meta and offline trainers through
+    cli.train.main, with build/smoke_5h/ (emptied first, removed at the end)
+    as the working directory, so ./datasets lands there (see the module
+    docstring for what each part checks)."""
+    import shutil
+    import torch
+    from massive_marl_tpu_torch.algos.metarl.maml import MAMLPPO
+    from massive_marl_tpu_torch.algos.mtrl.mtppo import MTPPO
+    from massive_marl_tpu_torch.algos.mtrl.mtsac import MTSAC
+    from massive_marl_tpu_torch.algos.offrl import datasets
+    from massive_marl_tpu_torch.algos.offrl.trainers import OfflineTrainer
+    from massive_marl_tpu_torch.cli import train as cli
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "smoke_5h")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counters = (fs.substep_kernel, fm.fwd_kernel, fm.bwd_kernel, fm.tower_fwd_kernel,
+                fm.tower_bwd_kernel)
+
+    def zero():
+        for k in counters:
+            k.launches = 0
+
+    counts = lambda: tuple(k.launches for k in counters)
+
+    def finite(label, values):
+        values = list(values)
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{label}: non-finite values {values}")
+
+    def on_card(label, trainer, envs):
+        devs = {torch.device(trainer.device).type} | {torch.device(e.device).type for e in envs}
+        if devs != {dev.type}:
+            raise AssertionError(f"{label}: trainer and envs on {devs}, expected the card")
+
+    def yaml_copy(algo, edits):
+        with open(os.path.join(root, "cfg", algo, "config.yaml")) as fh:
+            text = fh.read()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"cfg/{algo}/config.yaml: no single {old!r}")
+            text = text.replace(old, new)
+        path = os.path.join(work, f"{algo}.yaml")
+        with open(path, "w") as fh:
+            fh.write(text)
+        return path
+
+    def patch(cls, name, wrap):
+        orig = getattr(cls, name)
+        setattr(cls, name, wrap(orig))
+        return lambda: setattr(cls, name, orig)
+
+    def timed(rows, extra=lambda self: None):
+        """Wrap a method: each call timed on the host clock around
+        synchronised work, counted from 0; rows get (seconds, launches,
+        result, extra(self))."""
+        def wrap(orig):
+            def call(self, *a, **k):
+                torch.cuda.synchronize()
+                zero()
+                t0 = time.perf_counter()
+                out = orig(self, *a, **k)
+                torch.cuda.synchronize()
+                rows.append((time.perf_counter() - t0, counts(), out, extra(self)))
+                return out
+            return call
+        return wrap
+
+    def run_cli(*argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main(["--seed", "0", "--device", dev.type, *argv])
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # (a) MTPPO and MTTRPO on OneAnt + MultiAntCircle at cfg/ widths
+        for algo in ("mtppo", "mttrpo"):
+            rows = []
+            undo = patch(MTPPO, "train_iter",
+                         timed(rows, lambda self: dict(getattr(self, "last_search", {}))))
+            try:
+                tr, secs = run_cli("--algo", algo, "--num_envs", str(E), "--max_iterations", "2",
+                                "--logdir", os.path.join(work, algo), "--cfg_train",
+                                yaml_copy(algo, [("  save_interval: 1000\n",
+                                                  "  save_interval: 2\n")]))
+            finally:
+                undo()
+            on_card(algo, tr, tr.envs.values())
+            want = (tr.cfg.nsteps * tr.envs["OneAnt"].spec.substeps, 0, 0, 0, 0)
+            if len(rows) != 2 or tr.cfg.hidden != (1024, 1024, 512) or \
+                    tr.task_names != ["MultiAntCircle", "OneAnt"]:
+                raise AssertionError(f"{algo}: {len(rows)} iterations, hidden {tr.cfg.hidden}, "
+                                     f"tasks {tr.task_names}")
+            for it, (dt, got, (rews, vloss), search) in enumerate(rows):
+                finite(f"{algo} iteration {it}", [float(vloss), *(float(r) for r in rews.values())])
+                if got != want:
+                    raise AssertionError(f"{algo} iteration {it}: B1-B5 launches {got}, expected "
+                                         f"{want}")
+                print(f"  {algo.upper()} it {it}: {1e3 * dt:.1f} ms, "
+                      f"{tr.cfg.nsteps * E * tr.K / dt:.1f} env-steps/s (8 x {E} x {tr.K}); "
+                      f"B1-B5 launches {got}; value loss {float(vloss):.4f}, rew/step "
+                      + ", ".join(f"{t} {float(r):.3f}" for t, r in rews.items())
+                      + (f"; {search}" if search else ""))
+            path = os.path.join(work, algo, "seed0", "model_2.ckpt")
+            fresh = type(tr)(tr.envs, E, tr.cfg, seed=1, device=dev, print_log=False)
+            fresh.load(path)
+            same = all(torch.equal(a, b) for a, b in zip(fresh.model.parameters(),
+                                                         tr.model.parameters()))
+            if not same or fresh.state.iteration != 2:
+                raise AssertionError(f"{algo}: model_2.ckpt restored bit for bit {same}, "
+                                     f"iteration {fresh.state.iteration}")
+            n_params = sum(p.numel() for p in tr.model.parameters())
+            print(f"  {algo.upper()} (E={E} per task, obs {tr.obs_dim}, act {tr.max_act}, "
+                  f"{n_params} parameters): model_2.ckpt ({os.path.getsize(path)} B) restored "
+                  f"bit for bit; main() {secs:.1f} s")
+            del tr, fresh
+            torch.cuda.empty_cache()
+
+        # (b) MTSAC at the YAML's numEnvs 128
+        rows = []
+        undo = patch(MTSAC, "train_iter", timed(rows, lambda self: self.grad_steps))
+        try:
+            sac, secs = run_cli("--algo", "mtsac", "--max_iterations", "4",
+                             "--logdir", os.path.join(work, "mtsac"))
+        finally:
+            undo()
+        on_card("mtsac", sac, sac.envs.values())
+        c, ring = sac.cfg, sac.state.replay
+        want = (c.nsteps * sac.envs["OneAnt"].spec.substeps, 0, 0, 0, 0)
+        steps = c.noptepochs * c.nminibatches
+        prev = 0
+        for it, (dt, got, (rews, qloss), g) in enumerate(rows):
+            if got != want or g - prev != (0 if it == 0 else steps):
+                raise AssertionError(f"MTSAC iteration {it}: B1-B5 launches {got} (expected "
+                                     f"{want}), {g - prev} gradient steps")
+            finite(f"MTSAC iteration {it}", [float(r) for r in rews.values()]
+                   + ([] if qloss is None else [float(qloss)]))
+            print(f"  MTSAC it {it}: {1e3 * dt:.1f} ms, {g - prev} gradient steps, B1-B5 "
+                  f"launches {got}, q_loss {'-' if qloss is None else f'{float(qloss):.4g}'}")
+            prev = g
+        per_slot = 4 * (2 * sac.obs_dim + sac.act_dim + 2)
+        nbytes = ring.nbytes()
+        if len(rows) != 4 or nbytes != c.replay_size * sac.num_envs * per_slot or \
+                ring.obs.device.type != dev.type or ring.obs.dtype != torch.float32:
+            raise AssertionError(f"MTSAC: {len(rows)} iterations, ring {nbytes} B "
+                                 f"({ring.obs.dtype} on {ring.obs.device})")
+        print(f"  MTSAC (E={sac.num_envs} per task, obs {sac.obs_dim}, act {sac.act_dim}, "
+              f"hidden {c.hidden_nodes}x{c.hidden_layer}, batch {c.batch_size} slots x "
+              f"{sac.num_envs}): float32 ring {nbytes} B on the card ({per_slot} B a row x "
+              f"{c.replay_size} x {sac.num_envs}); main() {secs:.1f} s")
+        del sac, ring
+        torch.cuda.empty_cache()
+
+        # (c) the random baseline
+        zero()
+        rnd, secs = run_cli("--algo", "random", "--max_iterations", "2",
+                         "--logdir", os.path.join(work, "random"))
+        got = counts()
+        on_card("random", rnd, rnd.envs.values())
+        finite("random", rnd.results.values())
+        if got != (2 * 8 * rnd.envs["OneAnt"].spec.substeps, 0, 0, 0, 0):
+            raise AssertionError(f"random: B1-B5 launches {got}")
+        print(f"  random (2 iterations x 8 steps, E={rnd.num_envs}): B1-B5 launches {got}, "
+              f"mean reward/step {rnd.results}; main() {secs:.2f} s")
+
+        # (d) MAML-PPO on TenAnt
+        rows = []
+        undo = patch(MAMLPPO, "meta_iter", timed(rows))
+        try:
+            maml, secs = run_cli("--task", "TenAnt", "--algo", "mamlppo", "--num_envs", str(E),
+                              "--max_iterations", "2", "--logdir", os.path.join(work, "maml"))
+        finally:
+            undo()
+        on_card("mamlppo", maml, [maml.env])
+        c = maml.cfg
+        sub = maml.env.spec.substeps
+        want = (c.meta_batch_size * (c.support_steps + c.query_steps) * sub, 0, 0, 0, 0)
+        if len(rows) != 2:
+            raise AssertionError(f"mamlppo: {len(rows)} meta-iterations")
+        for it, (dt, got, m, _) in enumerate(rows):
+            finite(f"mamlppo meta-iteration {it}", [float(v) for v in m.values()])
+            if got != want:
+                raise AssertionError(f"mamlppo meta-iteration {it}: B1-B5 launches {got}, "
+                                     f"expected {want}")
+            print(f"  MAML-PPO meta-it {it}: {1e3 * dt:.1f} ms, B1-B5 launches {got}, meta loss "
+                  f"{float(m['meta_loss']):.4f}, task rew/step {float(m['mean_reward']):.4f}")
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre, post = maml.eval_adaptation(n_tasks=2)
+        torch.cuda.synchronize()
+        dt, got = time.perf_counter() - t0, counts()
+        finite("eval_adaptation", [pre, post])
+        if got != (2 * (2 * c.query_steps + c.support_steps) * sub, 0, 0, 0, 0):
+            raise AssertionError(f"eval_adaptation: B1-B5 launches {got}")
+        print(f"  MAML-PPO (TenAnt, E={E} per slot, {c.meta_batch_size} slots, hidden "
+              f"{c.hidden}): eval_adaptation(n_tasks=2) pre {pre:.4f}, post {post:.4f}, "
+              f"{1e3 * dt:.1f} ms, B1-B5 launches {got}; main() {secs:.1f} s")
+        del maml
+        torch.cuda.empty_cache()
+
+        # (e) ppo_collect on OneAnt, then the offline trainers on its dataset
+        zero()
+        pc, secs = run_cli("--task", "OneAnt", "--algo", "ppo_collect", "--num_envs", str(E),
+                        "--max_iterations", "1", "--logdir", os.path.join(work, "ppo_collect"),
+                        "--cfg_train", yaml_copy("ppo_collect", [
+                            ("  collect_steps: 100000\n", f"  collect_steps: {16 * E}\n")]))
+        got = counts()
+        on_card("ppo_collect", pc.ppo, [pc.env])
+        data = datasets.load_dataset(pc.out_dir)
+        shapes = {k: v.shape for k, v in data.items()}
+        sub = pc.env.spec.substeps
+        n = 16 * E
+        if got != ((8 + 16) * sub, 0, 0, 0, 0) or shapes != {
+                "states": (n, 60), "actions": (n, 8), "rewards": (n, 1), "dones": (n, 1),
+                "next_states": (n, 60)}:
+            raise AssertionError(f"ppo_collect: B1-B5 launches {got}, dataset {shapes}")
+        finite("ppo_collect dataset", [float(abs(v).max()) for v in data.values()])
+        print(f"  ppo_collect (OneAnt, E={E}, 1 iteration, then 2 chunks of 8 steps): B1-B5 "
+              f"launches {got}; {len(data['states'])} transitions in {pc.out_dir} "
+              f"({sum(v.nbytes for v in data.values())} B); main() {secs:.1f} s")
+        del pc, data
+        for algo in ("td3_bc", "bcq", "iql"):
+            runs, evals = [], []
+            undo_run = patch(OfflineTrainer, "run", timed(runs))
+            undo_eval = patch(OfflineTrainer, "eval_online", timed(evals))
+            try:
+                tr, secs = run_cli("--task", "OneAnt", "--algo", algo,
+                                "--logdir", os.path.join(work, algo), "--cfg_train",
+                                yaml_copy(algo, [("  max_iterations: 100000\n",
+                                                  "  max_iterations: 200\n"),
+                                                 ("  log_interval: 1000\n",
+                                                  "  log_interval: 100\n")]))
+            finally:
+                undo_run()
+                undo_eval()
+            (t_train, got_train, _, _), = runs
+            (t_eval, got_eval, ret, _), = evals
+            on_card(algo, tr, [])
+            finite(algo, [ret, *tr.last_metrics.values()])
+            if tr.state.step != 200 or got_train != (0,) * 5 or \
+                    got_eval != (1000 * sub, 0, 0, 0, 0) or tr.N != 16 * E:
+                raise AssertionError(f"{algo}: {tr.state.step} steps, B1-B5 launches "
+                                     f"{got_train} training and {got_eval} evaluating, "
+                                     f"{tr.N} rows")
+            print(f"  {algo} (batch {tr.cfg.batch_size}, hidden {tr.cfg.hidden}x"
+                  f"{tr.cfg.layers}, {tr.N} rows): 200 steps in {t_train:.2f} s "
+                  f"({200 / t_train:.1f} steps/s), q_loss {tr.last_metrics['q_loss']:.4g}; "
+                  f"eval_online (64 envs x 1000 steps) {t_eval:.2f} s, B1-B5 launches "
+                  f"{got_eval}, mean reward/step {ret:.4f}; main() {secs:.1f} s")
+            del tr
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    print(f"phase 5h: {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_ppo(ppo, it, m, launches, want, width):
     """Finite metrics and observations of width `width`; B1 launches."""
     import torch
@@ -2087,6 +2369,10 @@ def main() -> int:
     print("the rest of the MARL zoo on TenAnt (cfg/mat, cfg/maddpg, recurrent cfg/mappo, happo):")
     zoo = marl_zoo_phase(fs, fm, root, dev)
     torch.cuda.empty_cache()
+
+    # ---- 5h. the multi-task, meta and offline trainers through the CLI
+    print("the multi-task, meta and offline trainers through cli.train (cfg/, build/smoke_5h/):")
+    other_algos_phase(fs, fm, root, dev)
 
     # ---- 6. TenAnt + MAPPO (then stacked, HAPPO, FUSED_TOWER=1, HATRPO) at full width
     marl_counts, tower_counts, (runner, tower, trpo) = marl_phase(dev)

@@ -121,6 +121,33 @@ def adam_update(params, grads, opt: AdamState, lr, max_grad_norm: float | None =
         torch._foreach_sub_(params, upd)
 
 
+def grads_or_zeros(loss, params: List[torch.Tensor], **kw):
+    """d loss / d params, zeros for the parameters the loss does not reach
+    (jax.grad's convention)."""
+    gs = torch.autograd.grad(loss, params, allow_unused=True, **kw)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(gs, params)]
+
+
+def gae(traj, last_value, gamma: float, lam: float) -> torch.Tensor:
+    """GAE advantages [T, E] of a trajectory (reward, done, value), not
+    normalised: delta = r + gamma v' (1 - d) - v, adv = delta + gamma lam
+    (1 - d) adv'."""
+    next_values = torch.cat([traj["value"][1:], last_value[None]], dim=0)
+    adv = torch.zeros_like(last_value)
+    advs = []
+    for t in reversed(range(traj["reward"].shape[0])):
+        d = traj["done"][t]
+        delta = traj["reward"][t] + gamma * next_values[t] * (1 - d) - traj["value"][t]
+        adv = delta + gamma * lam * (1 - d) * adv
+        advs.append(adv)
+    return torch.stack(advs[::-1])
+
+
+def normalized(adv: torch.Tensor) -> torch.Tensor:
+    """The advantages centred and divided by their population std plus 1e-8."""
+    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+
+
 @dataclass
 class PPOTrainState:
     opt: AdamState
@@ -191,18 +218,9 @@ class PPO:
 
     # ----------------------------------------------------------------- update
     def gae(self, traj, last_value):
-        cfg = self.cfg
-        next_values = torch.cat([traj["value"][1:], last_value[None]], dim=0)
-        adv = torch.zeros_like(last_value)
-        advs = []
-        for t in reversed(range(traj["reward"].shape[0])):
-            nd = 1 - traj["done"][t]
-            delta = traj["reward"][t] + nd * cfg.gamma * next_values[t] - traj["value"][t]
-            adv = delta + nd * cfg.gamma * cfg.lam * adv
-            advs.append(adv)
-        adv = torch.stack(advs[::-1])
-        returns = adv + traj["value"]
-        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8), returns
+        """(advantages normalised by their population std, returns)."""
+        adv = gae(traj, last_value, self.cfg.gamma, self.cfg.lam)
+        return normalized(adv), adv + traj["value"]
 
     def _loss(self, batch, old_log_std):
         cfg = self.cfg

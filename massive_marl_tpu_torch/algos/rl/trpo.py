@@ -36,7 +36,8 @@ from torch import nn
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos import nets
-from massive_marl_tpu_torch.algos.rl.ppo import AdamState, adam_update
+from massive_marl_tpu_torch.algos.rl.ppo import (AdamState, adam_update, gae, grads_or_zeros,
+                                                 normalized)
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 
@@ -115,6 +116,50 @@ def assign(params, vec: torch.Tensor):
         i += p.numel()
 
 
+def natural_gradient_step(params, surrogate, mean_kl, cfg):
+    """One TRPO step on `params`, in place.  `surrogate()` and `mean_kl()`
+    evaluate the current parameters; cfg gives cg_nsteps, damping, max_kl,
+    max_num_backtrack and backtrack_coeff.  Parameters neither function
+    reaches get zero gradients.  Returns (old surrogate, accepted, {"fvps":
+    Fisher-vector products, "candidates": line-search candidates})."""
+    g = flat(grads_or_zeros(surrogate(), params))
+    grad_kl = flat(grads_or_zeros(mean_kl(), params, create_graph=True))
+    n_fvp = 0
+
+    def fvp(v):
+        nonlocal n_fvp
+        n_fvp += 1
+        return flat(grads_or_zeros(grad_kl @ v, params, retain_graph=True)) + cfg.damping * v
+
+    x, r, p = torch.zeros_like(g), g, g
+    rs = g @ g
+    for _ in range(cfg.cg_nsteps):
+        Ap = fvp(p)
+        alpha = rs / (p @ Ap + 1e-10)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = r @ r
+        p = r + (rs_new / (rs + 1e-10)) * p
+        rs = rs_new
+    sAs = x @ fvp(x)
+    full_step = torch.sqrt(2.0 * cfg.max_kl / torch.clamp(sAs, min=1e-10)) * x
+    del grad_kl
+
+    with torch.no_grad():
+        old_flat = flat(params)
+        old_surr = surrogate()
+        accepted, n_cand = False, 0
+        for i in range(cfg.max_num_backtrack):
+            n_cand += 1
+            assign(params, old_flat + cfg.backtrack_coeff ** i * full_step)
+            if bool((surrogate() - old_surr > 0) & (mean_kl() <= cfg.max_kl * 1.5)):
+                accepted = True
+                break
+        if not accepted:
+            assign(params, old_flat)
+    return old_surr, accepted, {"fvps": n_fvp, "candidates": n_cand}
+
+
 @dataclass
 class TRPOTrainState:
     vf_opt: AdamState
@@ -191,24 +236,12 @@ class TRPO:
     # ----------------------------------------------------------------- update
     def gae(self, traj, last_value):
         """(advantages normalised by their population std, returns)."""
-        cfg = self.cfg
-        next_values = torch.cat([traj["value"][1:], last_value[None]], dim=0)
-        adv = torch.zeros_like(last_value)
-        advs = []
-        for t in reversed(range(traj["reward"].shape[0])):
-            d = traj["done"][t]
-            delta = traj["reward"][t] + cfg.gamma * next_values[t] * (1 - d) - traj["value"][t]
-            adv = delta + cfg.gamma * cfg.lam * (1 - d) * adv
-            advs.append(adv)
-        adv = torch.stack(advs[::-1])
-        returns = adv + traj["value"]
-        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8), returns
+        adv = gae(traj, last_value, self.cfg.gamma, self.cfg.lam)
+        return normalized(adv), adv + traj["value"]
 
     def _policy_step(self, obs, actions, old_logp, old_mean, adv):
         """The natural-gradient step on the actor, in place; returns (old
         surrogate, accepted) as 0-d tensors."""
-        cfg = self.cfg
-        params = list(self.actor.parameters())
         old_log_std = self.actor.log_std.detach().clone()
 
         def surrogate():
@@ -221,44 +254,8 @@ class TRPO:
             return nets.gaussian_kl(old_mean, old_log_std.expand_as(mean), mean,
                                     log_std.expand_as(mean)).mean()
 
-        g = flat(torch.autograd.grad(surrogate(), params))
-        grad_kl = flat(torch.autograd.grad(mean_kl(), params, create_graph=True))
-        n_fvp = 0
-
-        def fvp(v):
-            nonlocal n_fvp
-            n_fvp += 1
-            hv = torch.autograd.grad(grad_kl @ v, params, retain_graph=True)
-            return flat(hv) + cfg.damping * v
-
-        x, r, p = torch.zeros_like(g), g, g
-        rs = g @ g
-        for _ in range(cfg.cg_nsteps):
-            Ap = fvp(p)
-            alpha = rs / (p @ Ap + 1e-10)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            rs_new = r @ r
-            p = r + (rs_new / (rs + 1e-10)) * p
-            rs = rs_new
-        sAs = x @ fvp(x)
-        full_step = torch.sqrt(2.0 * cfg.max_kl / torch.clamp(sAs, min=1e-10)) * x
-        del grad_kl
-
-        with torch.no_grad():
-            old_flat = flat(params)
-            old_surr = surrogate()
-            accepted, n_cand = False, 0
-            for i in range(cfg.max_num_backtrack):
-                n_cand += 1
-                assign(params, old_flat + cfg.backtrack_coeff ** i * full_step)
-                take = (surrogate() - old_surr > 0) & (mean_kl() <= cfg.max_kl * 1.5)
-                if bool(take):
-                    accepted = True
-                    break
-            if not accepted:
-                assign(params, old_flat)
-        self.last_search = {"fvps": n_fvp, "candidates": n_cand}
+        old_surr, accepted, self.last_search = natural_gradient_step(
+            list(self.actor.parameters()), surrogate, mean_kl, self.cfg)
         return old_surr, torch.tensor(float(accepted), device=self.device)
 
     def _critic_epochs(self, obs, v_old, returns):

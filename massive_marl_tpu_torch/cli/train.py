@@ -1,9 +1,13 @@
 """CLI trainer of the port (twin of massive_marl_tpu/cli/train.py): the
 single-agent algorithms PPO, TRPO, DDPG, TD3 and SAC on every task (OneAnt,
 TenAnt, MultiAntCircle, MultiIngenuity; a task of many agents through its
-joint-action interface), and MAPPO/IPPO/HAPPO/HATRPO (with GRU policies
+joint-action interface), MAPPO/IPPO/HAPPO/HATRPO (with GRU policies
 when the train YAML sets use_recurrent_policy), MAT and MADDPG on the tasks
-of many agents.
+of many agents, the multi-task trainers MTPPO, MTTRPO, MTSAC and the
+random baseline over the train YAML's `tasks` (default OneAnt +
+MultiAntCircle), MAML-PPO on --task, and the offline family: ppo_collect
+writes a dataset under ./datasets, TD3+BC, BCQ and IQL train on it and then
+evaluate online on --task.
 
     python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo ppo \
         --num_envs 4096 --max_iterations 100 [--randomize] [--logdir DIR]
@@ -25,6 +29,15 @@ of many agents.
         --seed 1 --model_dir latest --test [--headless]
     python -m massive_marl_tpu_torch.cli.train --task TenAnt \
         --num_envs 4096 --random_actions --bench_len 10 [--bench_file F]
+    python -m massive_marl_tpu_torch.cli.train --algo mtppo|mttrpo|mtsac \
+        --num_envs 4096 --max_iterations 100 [--cfg_train tasks.yaml]
+    python -m massive_marl_tpu_torch.cli.train --algo random --max_iterations 10
+    python -m massive_marl_tpu_torch.cli.train --task TenAnt --algo mamlppo \
+        --num_envs 4096 --max_iterations 100
+    python -m massive_marl_tpu_torch.cli.train --task OneAnt --algo ppo_collect \
+        --num_envs 4096 --max_iterations 100
+    python -m massive_marl_tpu_torch.cli.train --task OneAnt --algo td3_bc|bcq|iql \
+        --max_iterations 100000 [--datatype random]
 
 As in the JAX package, the env comes from cfg/<Task>.yaml and the trainer
 from cfg/<algo>/config.yaml (or --cfg_env / --cfg_train), with the
@@ -39,7 +52,10 @@ array engine, 1 or auto (the YAML's default) on the substep kernel.
 FUSED_TOWER=1 in the environment runs the MARL update's towers on kernels
 B4/B5.  Runs on CUDA unless --device cpu (or --rl_device cpu) is given.  MAT, MADDPG and the recurrent runner have no
 viewer policy: --test without --headless prints that the export was
-skipped, as the JAX CLI does.
+skipped, as the JAX CLI does.  The multi-task, meta and offline trainers
+neither restore nor --test, as in the JAX CLI; each multi-task env is
+built from its own cfg/<Task>.yaml with num_envs from --task's (or
+--num_envs), and `random` runs --max_iterations (default 10) iterations.
 
 The trainers log to <logdir>/seed<seed> (metrics.csv and a tfevents file)
 and save checkpoints there every save_interval iterations, in the JAX
@@ -60,10 +76,9 @@ import torch
 
 from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
 from massive_marl_tpu_torch.utils import config as cfg_mod
+from massive_marl_tpu_torch.utils import yaml_lite
 from massive_marl_tpu_torch.utils.registry import build_env
 
-# where ROADMAP.md queues the algorithms still to port
-NOT_PORTED = {a: "A.8" for a in cfg_mod.MTRL_ALGOS + cfg_mod.METARL_ALGOS + cfg_mod.OFFRL_ALGOS}
 # env steps per timed chunk of --random_actions
 BENCH_CHUNK = 256
 
@@ -141,6 +156,45 @@ def process_marl(algo, env, cfg_train, num_envs, kw):
     return MarlRunner(env, num_envs, mc, **kw)
 
 
+def process_other(args, cfg, cfg_train, logdir, num_envs):
+    """The multi-task, meta and offline algorithms, routed as the JAX CLI
+    routes them; returns the trainer (or the random runner) after its
+    run."""
+    algo, seed, dev = args.algo, cfg["seed"], args.device
+    if algo in cfg_mod.MTRL_ALGOS:
+        from massive_marl_tpu_torch.algos.mtrl.mtppo import MTPPO, MTPPOConfig, RandomPolicyRunner
+        envs = {}
+        for i, t in enumerate(cfg_train.get("tasks", ["OneAnt", "MultiAntCircle"])):
+            task_cfg = yaml_lite.load(os.path.join(cfg_mod.CFG_ROOT, f"{t}.yaml"))
+            if args.fused_kernel is not None:
+                task_cfg.setdefault("sim", {})["fused_kernel"] = cfg_mod.FUSED[args.fused_kernel]
+            envs[t] = build_env(t, task_cfg, multi_agent=False, device=dev, seed=seed + i)
+        if algo == "random":
+            runner = RandomPolicyRunner(envs, num_envs=num_envs, seed=seed, device=dev)
+            runner.results = runner.run(args.max_iterations or 10)
+            return runner
+        kw = dict(seed=seed, log_dir=logdir, device=dev)
+        if algo == "mtsac":
+            from massive_marl_tpu_torch.algos.mtrl.mtsac import MTSAC, MTSACConfig
+            trainer = MTSAC(envs, num_envs, MTSACConfig.from_cfg_train(cfg_train, "sac"), **kw)
+        elif algo == "mttrpo":
+            from massive_marl_tpu_torch.algos.mtrl.mttrpo import MTTRPO, MTTRPOConfig
+            trainer = MTTRPO(envs, num_envs, MTTRPOConfig.from_cfg_train(cfg_train), **kw)
+        else:
+            trainer = MTPPO(envs, num_envs, MTPPOConfig.from_cfg_train(cfg_train), **kw)
+        trainer.run(args.max_iterations or None)
+        return trainer
+    if algo in cfg_mod.METARL_ALGOS:
+        from massive_marl_tpu_torch.algos.metarl.maml import MAMLPPO, MAMLConfig
+        env = build_env(args.task, cfg, multi_agent=False, device=dev, seed=seed)
+        trainer = MAMLPPO(env, num_envs, MAMLConfig.from_cfg_train(cfg_train), seed=seed,
+                          log_dir=logdir, device=dev)
+        trainer.run(args.max_iterations or None)
+        return trainer
+    from massive_marl_tpu_torch.algos.offrl import run_offrl
+    return run_offrl(args, cfg, cfg_train, logdir)
+
+
 def _restore(args, restore, logdir):
     """--model_dir PATH|latest: restore the trainer before it trains or
     tests."""
@@ -201,8 +255,8 @@ def main(argv=None):
     seed = cfg["seed"]
     if args.random_actions:
         return bench_random_actions(args, cfg, num_envs)
-    if algo in NOT_PORTED:
-        raise NotImplementedError(f"--algo {algo} is not ported yet (ROADMAP {NOT_PORTED[algo]})")
+    if algo in cfg_mod.MTRL_ALGOS + cfg_mod.METARL_ALGOS + cfg_mod.OFFRL_ALGOS:
+        return process_other(args, cfg, cfg_train, logdir, num_envs)
     if args.task == "OneAnt" and algo in cfg_mod.MARL_ALGOS:
         raise SystemExit(f"OneAnt is a single-agent task: --algo one of {cfg_mod.SARL_ALGOS}")
     # --play alone also evaluates (reference config.py:288-294); --resume N

@@ -26,6 +26,12 @@ their state), so a file written by either package restores in the other:
 * the recurrent MARL runner writes the MARL file, its GRU leaves
   ("GRUCell_0": {ir, iz, in: {kernel, bias}, hr, hz: {kernel}, hn:
   {kernel, bias}}) beside the MLPBase ones.
+* MTPPO, MTTRPO and MAML-PPO: {"params": the flax ActorCritic tree,
+  "iteration"} (massive_marl_tpu/algos/mtrl/mtppo.py:240-253,
+  massive_marl_tpu/algos/metarl/maml.py:351-364), no optimizer state;
+* the offline trainers (TD3+BC, BCQ, IQL): {"params": {<net>: {"params":
+  {"Dense_i"}}}, "step"} (massive_marl_tpu/algos/offrl/trainers.py:
+  438-451), one flax Dense tree per network, which the port keeps.
 MAT, MADDPG and the MARL nets keep flax's layout in the port, so their
 trees go into a file as they are and come out checked key for key.
 """
@@ -318,6 +324,45 @@ def maddpg_state_from_flax(state, actor, critic):
     check_keys({"actor_params": _skeleton(actor), "critic_params": _skeleton(critic),
                 "iteration": None}, state, what="MADDPG checkpoint")
     return state["actor_params"], state["critic_params"], int(state["iteration"])
+
+
+MTPPO_SKELETON = {"params": {"params": {"MLP_0": None, "MLP_1": None, "log_std": None}},
+                  "iteration": None}
+
+
+def mtppo_state_to_flax(model_state, iteration: int):
+    """The JAX MTPPO / MTTRPO / MAML-PPO checkpoint tree {"params",
+    "iteration"} from an ActorCritic state_dict."""
+    return {"params": actor_critic_to_flax(model_state), "iteration": _int32(iteration)}
+
+
+def mtppo_state_from_flax(state, what: str = "MTPPO checkpoint"):
+    """A decoded JAX MTPPO / MTTRPO / MAML-PPO checkpoint -> (ActorCritic
+    state_dict, iteration)."""
+    check_keys(MTPPO_SKELETON, state, what=what)
+    return actor_critic_from_flax(state["params"]), int(state["iteration"])
+
+
+def tree_from_flax(params):
+    """A JAX parameter tree of dense layers whose layout the port keeps (the
+    MTSAC trainer's {"pi", "q1", "q2"}, the offline trainers' {<net>:
+    {"params": {"Dense_i"}}}; numpy leaves) -> the same tree of float32
+    tensors."""
+    return _tree_to_torch(params)
+
+
+def offline_state_to_flax(params, step: int):
+    """The JAX offline checkpoint tree {"params", "step"}."""
+    return {"params": params, "step": _int32(step)}
+
+
+def offline_state_from_flax(state, params):
+    """A decoded JAX offline checkpoint -> (params, step), checked key for
+    key against the trainer's own tree (a file of another algorithm, whose
+    networks differ, or of other depths raises ValueError)."""
+    check_keys({"params": _skeleton(params), "step": None}, state,
+               what="offline checkpoint")
+    return state["params"], int(state["step"])
 
 
 SYSTEM_FIELDS = ("parent", "point_body", "point_sensor", "num_sensors",

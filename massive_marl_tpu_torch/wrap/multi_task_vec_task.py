@@ -21,6 +21,17 @@ import torch.nn.functional as F
 from massive_marl_tpu_torch.wrap.vec_task import VecTaskPython
 
 
+def task_obs(obs: torch.Tensor, max_obs: int, K: int, idx: int, onehot: bool = True):
+    """obs zero-padded to max_obs, then (onehot) followed by the one-hot of
+    task idx among K."""
+    obs = F.pad(obs, (0, max_obs - obs.shape[-1]))
+    if not onehot:
+        return obs
+    hot = torch.zeros(obs.shape[:-1] + (K,), dtype=obs.dtype, device=obs.device)
+    hot[..., idx] = 1.0
+    return torch.cat([obs, hot], dim=-1)
+
+
 class MultiTaskVecTaskPython:
     """mode="add-onehot" appends the task one-hot to every obs;
     mode="vanilla" returns the padded obs."""
@@ -45,12 +56,7 @@ class MultiTaskVecTaskPython:
         self._cur = 0
 
     def _aug(self, obs, idx):
-        obs = F.pad(obs, (0, self.max_obs - obs.shape[-1]))
-        if self.mode == "vanilla":
-            return obs
-        onehot = torch.zeros((obs.shape[0], self.K), dtype=obs.dtype, device=obs.device)
-        onehot[:, idx] = 1.0
-        return torch.cat([obs, onehot], dim=-1)
+        return task_obs(obs, self.max_obs, self.K, idx, self.mode == "add-onehot")
 
     def sample_task(self) -> int:
         if self.sample_strategy == "round_robin":

@@ -25,9 +25,8 @@
   and recurrent MAPPO the same with mat_/maddpg_/marl_<it>.ckpt, their
   viewer export skipped as in the JAX CLI; OneAnt takes
   every single-agent algorithm; MultiAntCircle and MultiIngenuity build
-  and train through main() and make(); the algorithms still to port are
-  refused by name with their ROADMAP item, and a MARL algorithm (MAT
-  included) on OneAnt.
+  and train through main() and make(); a MARL algorithm (MAT included) on
+  OneAnt is refused.
 """
 import dataclasses
 import json
@@ -375,11 +374,3 @@ def test_other_tasks_build_and_train(cfgs, tmp_path, task):
     o, r, done, _ = single.step(torch.zeros(2, single.num_actions))
     assert isinstance(single, VecTaskPython) and o.shape == (2, single.num_obs)
     assert torch.isfinite(o).all() and torch.isfinite(r).all()
-
-
-@pytest.mark.parametrize("algo,item", [
-    (a, "A.8") for a in p_config.MTRL_ALGOS + p_config.METARL_ALGOS + p_config.OFFRL_ALGOS])
-def test_unported_algorithms_refused_by_name(algo, item):
-    with pytest.raises(NotImplementedError, match=f"--algo {algo} is not ported yet "
-                                                  rf"\(ROADMAP {item}\)"):
-        p_train.main(["--algo", algo, "--device", "cpu"])

@@ -13,8 +13,14 @@
   for --algo mat, --algo maddpg and --algo mappo with a
   use_recurrent_policy YAML (the recurrent runner), each to the runner's
   class and configuration.
-* The CLI refuses what is not ported yet by its ROADMAP item, and a MARL
-  algorithm on OneAnt.
+* The multi-task, meta and offline algorithms (mtppo, mttrpo, mtsac,
+  random, mamlppo, ppo_collect, td3_bc, bcq, iql) build through the port's
+  main the trainer the JAX CLI's train builds: the same class, config
+  fields, task set, env count and seed (run, and the offline trainers'
+  eval_online, replaced by no-ops on both sides; the offline trainers read
+  a dataset written under ./datasets of a temporary working directory);
+  and mtppo with a --cfg_train YAML that lists three tasks.
+* The CLI refuses a MARL algorithm on OneAnt.
 """
 import dataclasses
 
@@ -146,9 +152,84 @@ def test_cli_builds_the_marl_runner_the_jax_cli_builds(algo, recurrent, monkeypa
 
 
 def test_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        p_cli.main(["--algo", "mamlppo", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        p_cli.main(["--algo", "mtppo", "--device", "cpu"])
     with pytest.raises(SystemExit):
         p_cli.main(["--task", "OneAnt", "--algo", "happo", "--device", "cpu"])
+
+
+OTHER_ALGOS = ["mtppo", "mttrpo", "mtsac", "random", "mamlppo", "ppo_collect", "td3_bc", "bcq",
+               "iql", "mtppo_three_tasks"]
+
+
+def _patch_other(monkeypatch):
+    """No-op runs (and online evaluations) for both packages' multi-task,
+    meta and offline trainers."""
+    from massive_marl_tpu.algos.metarl import maml as j_maml
+    from massive_marl_tpu.algos.mtrl import mtppo as j_mtppo, mtsac as j_mtsac
+    from massive_marl_tpu.algos.offrl import collect as j_collect, trainers as j_off
+    from massive_marl_tpu_torch.algos.metarl import maml as p_maml
+    from massive_marl_tpu_torch.algos.mtrl import mtppo as p_mtppo, mtsac as p_mtsac
+    from massive_marl_tpu_torch.algos.offrl import collect as p_collect, trainers as p_off
+    for cls in (j_mtppo.MTPPO, j_mtsac.MTSAC, j_mtppo.RandomPolicyRunner, j_maml.MAMLPPO,
+                j_collect.PPOCollect, j_off.OfflineTrainer, p_mtppo.MTPPO, p_mtsac.MTSAC,
+                p_mtppo.RandomPolicyRunner, p_maml.MAMLPPO, p_collect.PPOCollect,
+                p_off.OfflineTrainer):
+        monkeypatch.setattr(cls, "run", lambda self, *a, **k: {})
+    for cls in (j_off.OfflineTrainer, p_off.OfflineTrainer):
+        monkeypatch.setattr(cls, "eval_online", lambda self, *a, **k: 0.0)
+
+
+def _env_view(env):
+    return type(env).__name__, env.num_obs, env.num_actions * env.num_agents
+
+
+@pytest.mark.parametrize("case", OTHER_ALGOS)
+def test_cli_builds_what_the_jax_cli_builds(case, monkeypatch, tmp_path):
+    import numpy as np
+
+    from massive_marl_tpu_torch.algos.offrl import datasets as p_data
+    _patch_other(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    algo = case.split("_three")[0]
+    task = "OneAnt" if algo in p_config.OFFRL_ALGOS else "TenAnt"
+    argv = ["--task", task, "--algo", algo, "--seed", "5", "--num_envs", "16",
+            "--logdir", str(tmp_path / "logs")]
+    if case == "mtppo_three_tasks":
+        src = open(f"{p_config.CFG_ROOT}/mtppo/config.yaml").read()
+        assert src.endswith("tasks:\n- OneAnt\n- MultiAntCircle\n")
+        path = tmp_path / "three.yaml"
+        path.write_text(src + "- TenAnt\n")
+        argv += ["--cfg_train", str(path)]
+    if algo in ("td3_bc", "bcq", "iql"):
+        rng = np.random.default_rng(0)
+        p_data.save_dataset(p_data.dataset_dir("./datasets", "OneAnt", "expert"),
+                            states=rng.normal(size=(64, 60)), actions=rng.uniform(-1, 1, (64, 8)),
+                            rewards=rng.normal(size=(64, 1)), dones=np.zeros((64, 1)),
+                            next_states=rng.normal(size=(64, 60)))
+    port = p_cli.main(argv + ["--device", "cpu"])
+    ref = j_cli.train(j_config.get_args(argv))
+    assert type(port).__name__ == type(ref).__name__
+    if algo in p_config.MTRL_ALGOS:
+        want = ["OneAnt", "MultiAntCircle"] + (["TenAnt"] if "three" in case else [])
+        assert list(port.envs) == list(ref.envs) == want
+        assert {t: _env_view(e) for t, e in port.envs.items()} == \
+            {t: _env_view(e) for t, e in ref.envs.items()}
+        assert port.num_envs == ref.num_envs == 16
+        if algo == "random":
+            return
+        assert port.task_names == ref.task_names == sorted(want)
+        assert port.seed == ref.seed == 5 and port.obs_dim == ref.obs_dim
+        assert _fields(port.cfg) == _fields(ref.cfg)
+    elif algo == "mamlppo":
+        assert _env_view(port.env) == _env_view(ref.env) == ("TenAntEnv", 388, 80)
+        assert (port.num_envs, port.seed) == (ref.num_envs, ref.seed) == (16, 5)
+        assert _fields(port.cfg) == _fields(ref.cfg)
+    elif algo == "ppo_collect":
+        assert _env_view(port.env) == _env_view(ref.env) == ("OneAntEnv", 60, 8)
+        assert port.num_envs == ref.num_envs == 16
+        assert (port.out_dir, port.collect_steps) == (ref.out_dir, ref.collect_steps) == \
+            ("./datasets/OneAnt_expert", 100_000)
+        assert _fields(port.ppo.cfg) == _fields(ref.ppo.cfg)
+    else:
+        assert _fields(port.cfg) == _fields(ref.cfg) and port.cfg.algo == algo
+        assert (port.obs_dim, port.act_dim, port.N, port.seed) == \
+            (ref.obs_dim, ref.act_dim, ref.N, ref.seed) == (60, 8, 64, 5)

@@ -56,7 +56,15 @@ def test_scan_sees_the_whole_port():
                  "massive_marl_tpu_torch/envs/multi_ant_circle.py",
                  "massive_marl_tpu_torch/envs/multi_ingenuity.py",
                  "massive_marl_tpu_torch/wrap/multi_task_vec_task.py",
-                 "massive_marl_tpu_torch/phys/mjcf.py"):
+                 "massive_marl_tpu_torch/phys/mjcf.py",
+                 "massive_marl_tpu_torch/algos/mtrl/mtppo.py",
+                 "massive_marl_tpu_torch/algos/mtrl/mttrpo.py",
+                 "massive_marl_tpu_torch/algos/mtrl/mtsac.py",
+                 "massive_marl_tpu_torch/algos/metarl/maml.py",
+                 "massive_marl_tpu_torch/algos/offrl/__init__.py",
+                 "massive_marl_tpu_torch/algos/offrl/collect.py",
+                 "massive_marl_tpu_torch/algos/offrl/datasets.py",
+                 "massive_marl_tpu_torch/algos/offrl/trainers.py"):
         assert must in names
     tree = ast.parse("import jax.numpy as jnp\nfrom massive_marl_tpu.phys import mjcf\n"
                      "import importlib\nimportlib.import_module('flax')\nimport msgpack\n")
