@@ -159,7 +159,19 @@ Phases; any failure raises and the script exits non-zero:
      device's busy share (full lists in build/), and for both PPO runs a
      host-clock breakdown of one rollout step into its parts; it raises if
      B2's group (MAPPO, HATRPO) or B4's (FUSED_TOWER=1) shows no device time
-     in an iteration that launched it.
+     in an iteration that launched it;
+  8. data parallelism (parallel/mesh.py) on TenAnt + PPO and + MAPPO at
+     full width, E=4096, 2 iterations each, every launch count exact (24
+     B1; 24 B1, 300 B2, 300 B3 per iteration and rank).  8a, one process:
+     the runs without a mesh; each rank's first rollout on a 2-rank layout
+     against their rows (the same bits in every field of P8_ROWS_RULE);
+     each trainer's own spread under another summation order
+     (p8_other_order); then the same seeds with an NCCL mesh of world size
+     1, its all-reduces' bytes and NCCL device time (torch.profiler).  8b:
+     two ranks sharing the card (parallel/launch.py --backend gloo, 2,048
+     env rows each), both ranks' parameters and optimizer state the same
+     bits.  8a's and 8b's runs start from the one-process parameters bit
+     for bit and land within 3 x their trainer's own spread (p8_agrees).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2224,6 +2236,375 @@ def marl_phase(dev):
     return main_counts, tower_counts, (runner, tower, trpo)
 
 
+# ---------------------------------------------------------------- phase 8
+P8_ITERS = 2          # iterations of each phase-8 run
+P8_ROWS_OFF = 1e-4    # an entry off by more than this is counted (printed)
+
+
+def p8_trainers(dev, mesh):
+    """(PPO, MAPPO) at full width (E envs, PPOConfig(), MarlConfig()) on
+    TenAnt envs of seed 0, with `mesh` (None: one process alone)."""
+    from massive_marl_tpu_torch.algos.marl.runner import MarlConfig, MarlRunner
+    from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    return (PPO(TenAntEnv(device=dev, seed=0), E, PPOConfig(), seed=0, device=dev,
+                print_log=False, mesh=mesh),
+            MarlRunner(TenAntEnv(device=dev, seed=0), E, MarlConfig(), seed=0, device=dev,
+                       print_log=False, mesh=mesh))
+
+
+def p8_state(t):
+    """(parameters, optimizer state) of a phase-8 trainer as tensor lists."""
+    from massive_marl_tpu_torch.utils.tree import tree_leaves
+    if hasattr(t, "model"):
+        return list(t.model.parameters()), t.state.opt.mu + t.state.opt.nu
+    st = t.state
+    return (tree_leaves(st.actor_params) + tree_leaves(st.critic_params),
+            st.actor_opt.mu + st.actor_opt.nu + st.critic_opt.mu + st.critic_opt.nu)
+
+
+def p8_run(t, mesh=None):
+    """P8_ITERS timed iterations of a phase-8 trainer: per iteration the
+    metrics, the B1/B2/B3 launches and (under a mesh) the all-reduces and
+    their bytes; the parameters on the host before and after, and
+    env-steps/s."""
+    import torch
+    from massive_marl_tpu_torch.ops import fused_mlp as fm
+    from massive_marl_tpu_torch.ops import fused_substep as fs
+    from massive_marl_tpu_torch.utils.tree import tree_leaves
+    counters = (fs.substep_kernel, fm.fwd_kernel, fm.bwd_kernel)
+    t.init_state()
+    flat = lambda: torch.cat([p.detach().float().reshape(-1) for p in p8_state(t)[0]]).cpu()
+    start = flat()
+    actor = (sum(p.numel() for p in tree_leaves(t.state.actor_params))
+             if hasattr(t.state, "actor_params") else None)
+    iters = []
+    for _ in range(P8_ITERS):
+        for k in counters:
+            k.launches = 0
+        c0, b0 = (mesh.collectives, mesh.bytes_reduced) if mesh is not None else (0, 0)
+        m, roll_s, upd_s = timed_iteration(t)
+        iters.append(dict(metrics=m, s=roll_s + upd_s,
+                          launches=tuple(k.launches for k in counters),
+                          collectives=(mesh.collectives - c0) if mesh is not None else 0,
+                          bytes=(mesh.bytes_reduced - b0) if mesh is not None else 0))
+    rows = t.state.env_state.obs.shape[0]
+    sps = P8_ITERS * 8 * E / sum(i["s"] for i in iters)
+    return dict(iters=iters, params=flat(), start=start, rows=rows, sps=sps, actor=actor)
+
+
+def p8_want(name):
+    """B1/B2/B3 launches of one phase-8 iteration (phases 5 and 6)."""
+    return (24, 0, 0) if name == "ppo" else (24, 300, 300)
+
+
+def p8_other_order(t):
+    """A context in which the one-process trainer `t` sums in another
+    order: every product on the other BLAS library (cuBLAS / cuBLASLt:
+    other tiles and K splits), bf16 products with the other
+    reduced-precision setting of their split-K reductions, and for MAPPO
+    the update's batch rows in another order, a fixed random permutation
+    (the same rows, so the same update, summed in another order by B3,
+    the heads and the loss means)."""
+    import contextlib
+
+    import torch
+
+    def reordered(fn):
+        def run(data, share, *a):
+            g = torch.Generator(device=share.device)
+            g.manual_seed(7)
+            p = torch.randperm(share.shape[0], generator=g, device=share.device)
+            return fn({k: v[:, p] for k, v in data.items()}, share[p], *a)
+        return run
+
+    @contextlib.contextmanager
+    def ctx():
+        flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        lib = torch.backends.cuda.preferred_blas_library()
+        torch.backends.cuda.preferred_blas_library(
+            "cublas" if "lt" in str(lib).lower() else "cublaslt")
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = not flag
+        if hasattr(t, "_sequential"):
+            t._sequential, t._stacked = reordered(t._sequential), reordered(t._stacked)
+        try:
+            yield
+        finally:
+            torch.backends.cuda.preferred_blas_library(lib)
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+            t.__dict__.pop("_sequential", None)
+            t.__dict__.pop("_stacked", None)
+    return ctx()
+
+
+P8_ROWS_RULE = {"ppo": ("obs", "actions", "mean", "logp", "reward", "done"),
+                "mappo": ("obs", "share", "actions", "logp", "values", "reward", "done")}
+
+
+def p8_rows_rule(dev):
+    """The rows rule on the card: PPO's and MAPPO's first rollout in one
+    process against the same on each rank of a 2-rank layout (Mesh(2, 1,
+    r): the rank's envs and its draws over the global env axis; a rollout
+    runs no collective): per trajectory field the entries that differ.
+    Raises if a field of P8_ROWS_RULE differs (PPO's critic values are
+    float32 cuBLAS products, whose bits cuBLAS may set by the row count)."""
+    import torch
+    from massive_marl_tpu_torch.parallel.mesh import Mesh
+    for i, name in enumerate(("ppo", "mappo")):
+        one = p8_trainers(dev, None)[i]
+        one.init_state()
+        full = one.rollout_phase()
+        del one
+        parts = []
+        for r in range(2):
+            t = p8_trainers(dev, Mesh(2, 1, r))[i]
+            t.init_state()
+            parts.append(t.rollout_phase())
+            del t
+        differ = {k: (int((v != torch.cat([p[k] for p in parts], 1)).sum()), v.numel())
+                  for k, v in full.items()}     # [T, E, ...]
+        print(f"  {name} rollout, one process against 2 ranks' rows (entries that differ): " +
+              "; ".join(f"{k} {n} of {tot}" for k, (n, tot) in differ.items()))
+        bad = [k for k in P8_ROWS_RULE[name] if differ[k][0]]
+        if bad:
+            raise AssertionError(f"8a {name}: a rank's rollout differs from one process's rows "
+                                 f"in {bad}")
+        torch.cuda.empty_cache()
+
+
+def p8_dist(got, ref):
+    """`got`'s parameters against `ref`'s: the largest |difference|, the
+    entries beyond P8_ROWS_OFF, and the difference's norm over the
+    distance `ref`'s training moved its parameters (`rel`; for MAPPO also
+    its actor's and its critic's apart)."""
+    d = (got["params"] - ref["params"]).abs()
+    moved = ref["params"] - ref["start"]
+    out = dict(max=float(d.max()), off=int((d > P8_ROWS_OFF).sum()),
+               rel=float(d.norm() / moved.norm()))
+    if ref.get("actor"):
+        k = ref["actor"]
+        out.update(actor=float(d[:k].norm() / moved[:k].norm()),
+                   critic=float(d[k:].norm() / moved[k:].norm()))
+    return out
+
+
+def p8_spread(ref, alt):
+    """The one-process run's own spread under another summation order
+    (`alt`, run under p8_other_order): per iteration and metric the
+    |difference|, and p8_dist of the parameters."""
+    return dict(p8_dist(alt, ref),
+                metrics=[{k: abs(a["metrics"][k] - v) for k, v in r["metrics"].items()}
+                         for r, a in zip(ref["iters"], alt["iters"])])
+
+
+def p8_agrees(label, got, ref, spread):
+    """Whether a phase-8 run agrees with the one-process run `ref` of the
+    same seeds: the same initial parameters bit for bit, and within the
+    trainer's own spread under another summation order (p8_spread) each
+    metric within 1e-4 + 1e-3 |ref| + 3 x its spread, and the parameters'
+    difference, over the distance training moved them, within 3 x the
+    spread's (an update that went elsewhere is off by about the distance
+    moved).  Prints the reading."""
+    import torch
+    ok = bool(torch.equal(got["start"], ref["start"]))
+    if not ok:
+        print(f"  {label}: the initial parameters differ from one process's")
+    for it, (g, r) in enumerate(zip(got["iters"], ref["iters"])):
+        for k, v in r["metrics"].items():
+            tol = 1e-4 + 1e-3 * abs(v) + 3.0 * spread["metrics"][it][k]
+            if not math.isfinite(g["metrics"][k]) or abs(g["metrics"][k] - v) > tol:
+                print(f"  {label} iteration {it}: {k} {g['metrics'][k]} vs {v} "
+                      f"(tolerance {tol:.3g})")
+                ok = False
+    d = p8_dist(got, ref)
+    ok = ok and d["rel"] <= 3.0 * spread["rel"]
+    print(f"  {label}: parameters {'within' if ok else 'BEYOND'} the tolerance: |diff| "
+          f"{100 * d['rel']:.3f}% of the distance moved (own spread {100 * spread['rel']:.3f}%,"
+          f" limit {300 * spread['rel']:.3f}%); max |diff| {d['max']:.3e} (spread "
+          f"{spread['max']:.3e}), {d['off']} entries beyond {P8_ROWS_OFF:g} (spread "
+          f"{spread['off']})" + (f"; actor {100 * d['actor']:.3f}%, critic "
+                                 f"{100 * d['critic']:.3f}%" if "actor" in d else ""))
+    return ok
+
+
+def p8_check(label, got, ref, spread):
+    """p8_agrees, raising when the run does not agree."""
+    if not p8_agrees(label, got, ref, spread):
+        raise AssertionError(f"{label}: beyond the tolerance of its own spread")
+
+
+def p8_print_iters(label, res):
+    for it, i in enumerate(res["iters"]):
+        m = i["metrics"]
+        print(f"  {label} it {it}: {1e3 * i['s']:.1f} ms; launches B1/B2/B3 {i['launches']}; "
+              f"{i['collectives']} all-reduces, {i['bytes'] / 1e6:.3f} MB; rew/step "
+              f"{m['mean_reward']:.4f}, " + ", ".join(
+                  f"{k} {v:.5g}" for k, v in m.items() if "loss" in k))
+
+
+def nccl_profile(t, mesh, label):
+    """One more iteration of a mesh trainer under torch.profiler: the
+    device time of the NCCL kernels and the all-reduces' bytes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    c0, b0 = mesh.collectives, mesh.bytes_reduced
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        timed_iteration(t)
+    ms, n = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and "nccl" in ev.name.lower():
+            ms += ev.time_range.elapsed_us() / 1e3
+            n += 1
+    print(f"  {label} NCCL (profiler on, one iteration): {mesh.collectives - c0} all-reduces, "
+          f"{(mesh.bytes_reduced - b0) / 1e6:.3f} MB, {n} NCCL kernels, {ms:.3f} device ms")
+
+
+def phase8a(dev):
+    """Phase 8a: one process, NCCL at world size 1: PPO and MAPPO with the
+    mesh against the same seeds without one, each within its own spread.
+    Returns the one-process runs and their spreads (phase 8b's
+    references)."""
+    import torch
+    import torch.distributed as dist
+    from massive_marl_tpu_torch.parallel import launch as launch_mod
+    from massive_marl_tpu_torch.parallel import mesh as meshlib
+    t_phase = time.perf_counter()
+    ref, spread = {}, {}
+    for name, t in zip(("ppo", "mappo"), p8_trainers(dev, None)):
+        ref[name] = p8_run(t)
+        if any(i["launches"] != p8_want(name) for i in ref[name]["iters"]):
+            raise AssertionError(f"8a {name} without a mesh: launches "
+                                 f"{[i['launches'] for i in ref[name]['iters']]}")
+        p8_print_iters(f"{name} (no mesh)", ref[name])
+        del t
+    p8_rows_rule(dev)
+    for name, t in zip(("ppo", "mappo"), p8_trainers(dev, None)):
+        with p8_other_order(t):
+            spread[name] = p8_spread(ref[name], p8_run(t))
+        print(f"  {name} (no mesh, another summation order, p8_other_order): "
+              f"{spread[name]['off']} parameter entries beyond {P8_ROWS_OFF:g}, max "
+              f"{spread[name]['max']:.3e}, {100 * spread[name]['rel']:.3f}% of the distance "
+              "moved; metric spread " + "; ".join(
+                  ", ".join(f"{k} {v:.3g}" for k, v in m.items())
+                  for m in spread[name]["metrics"]))
+        del t
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{launch_mod.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = meshlib.make_mesh()
+        print(f"  mesh {mesh.shape}, backend {mesh.backend}")
+        for name, t in zip(("ppo", "mappo"), p8_trainers(dev, mesh)):
+            got = p8_run(t, mesh)
+            p8_print_iters(f"{name} (NCCL mesh of 1)", got)
+            if any(i["launches"] != p8_want(name) for i in got["iters"]):
+                raise AssertionError(f"8a {name}: launches {[i['launches'] for i in got['iters']]}"
+                                     f", expected {p8_want(name)} per iteration")
+            p8_check(f"8a {name}", got, ref[name], spread[name])
+            nccl_profile(t, mesh, f"8a {name}")
+            del t
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 8a: {time.perf_counter() - t_phase:.1f} s")
+    return ref, spread
+
+
+def gloo_cuda_probe():
+    """Which collectives gloo takes on CUDA tensors (mesh.py copies every
+    gloo collective of a CUDA tensor through the host either way): each is
+    called with a CUDA tensor; a refusal is recorded with its message."""
+    import torch
+    import torch.distributed as dist
+    x, n = torch.ones(4, device="cuda"), dist.get_world_size()
+    calls = (("all_reduce", lambda: dist.all_reduce(x.clone())),
+             ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+             ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x)),
+             ("reduce_scatter", lambda: dist.reduce_scatter(
+                 torch.empty_like(x), [x.clone() for _ in range(n)])))
+    out = {}
+    for name, call in calls:
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "taken"
+        except (RuntimeError, ValueError) as e:     # the probe's answer, printed
+            out[name] = f"refused ({type(e).__name__}: {str(e).splitlines()[0][:100]})"
+    return out
+
+
+def phase8_rank(out_path) -> int:
+    """A rank of phase 8b (`python -m chip_smoke --phase8-rank OUT`, started
+    by parallel/launch.py): PPO and MAPPO on its E / 2 envs; rank 0 saves
+    the runs to OUT."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from massive_marl_tpu_torch.parallel import mesh as meshlib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not meshlib.init_distributed(device="cuda"):
+        raise AssertionError("phase 8b: a rank started without MMT_NUM_PROCESSES > 1")
+    mesh = meshlib.make_mesh()
+    res = {"probe": gloo_cuda_probe(), "backend": mesh.backend, "device":
+           torch.cuda.current_device()}
+    for name, t in zip(("ppo", "mappo"), p8_trainers(torch.device("cuda"), mesh)):
+        res[name] = p8_run(t, mesh)
+        h = hashlib.sha256()
+        for x in sum(p8_state(t), []):
+            h.update(x.detach().float().cpu().numpy().tobytes())
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, h.hexdigest())
+        res[name]["digests"] = digests
+        del t
+        torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        torch.save(res, out_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase8b(root, ref, spread):
+    """Phase 8b: two ranks sharing the one card (parallel/launch.py,
+    gloo over CUDA tensors through the host), PPO and MAPPO at global
+    E = 2 x E / 2 against the one-process runs of phase 8a, each within
+    its own spread."""
+    import torch
+    from massive_marl_tpu_torch.parallel import launch as launch_mod
+    t_phase = time.perf_counter()
+    out = os.path.join(root, "build", "phase8b_rank0.pt")
+    if os.path.exists(out):
+        os.remove(out)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    env.pop("OMP_NUM_THREADS", None)
+    rc = launch_mod.launch(2, ["--phase8-rank", out], backend="gloo", module="chip_smoke",
+                           timeout=600, env=dict(env, OMP_NUM_THREADS="2"))
+    if rc != 0:
+        raise AssertionError(f"phase 8b: a rank exited with {rc}")
+    got = torch.load(out)
+    print(f"  2 ranks, backend {got['backend']}, both on cuda:{got['device']}; gloo on CUDA "
+          "tensors: " + ", ".join(f"{k} {v}" for k, v in got["probe"].items()))
+    for name in ("ppo", "mappo"):
+        g = got[name]
+        p8_print_iters(f"{name} (rank 0 of 2)", g)
+        if g["rows"] != E // 2:
+            raise AssertionError(f"8b {name}: rank 0 held {g['rows']} env rows, not {E // 2}")
+        if any(i["launches"] != p8_want(name) for i in g["iters"]):
+            raise AssertionError(f"8b {name}: launches {[i['launches'] for i in g['iters']]}, "
+                                 f"expected {p8_want(name)} per iteration and rank")
+        if len(set(g["digests"])) != 1:
+            raise AssertionError(f"8b {name}: the ranks' parameters or optimizer state differ")
+        p8_check(f"8b {name}", g, ref[name], spread[name])
+        print(f"  8b {name}: {g['rows']} env rows a rank, parameters and optimizer state "
+              f"identical on both ranks; {g['sps']:.1f} global env-steps/s over "
+              f"{P8_ITERS} iterations (two ranks share one card and gloo copies through the "
+              "host: not a scaling figure)")
+    print(f"phase 8b: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2417,6 +2798,16 @@ def main() -> int:
                           "MAPPO FUSED_TOWER=1", (("B4 mlp_tower fwd", fm.tower_fwd_kernel),))
     finally:
         os.environ.pop("FUSED_TOWER")
+    del runner, tower, trpo
+    torch.cuda.empty_cache()
+
+    # ---- 8. data parallelism: NCCL at world size 1, then two ranks on the one card
+    print(f"phase 8a: TenAnt + PPO and + MAPPO at E={E}, {P8_ITERS} iterations each, without "
+          "a mesh and with an NCCL mesh of world size 1:")
+    p8_ref, p8_spread_ = phase8a(dev)
+    print(f"phase 8b: the same on 2 ranks sharing the card (parallel/launch.py --backend gloo), "
+          f"E={E // 2} envs a rank:")
+    phase8b(root, p8_ref, p8_spread_)
 
     print(card)
     mlp_entry = lambda name, kind, n, src, line, err, main: {
@@ -2459,4 +2850,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase8-rank"]:
+        sys.exit(phase8_rank(sys.argv[2]))
     sys.exit(main())

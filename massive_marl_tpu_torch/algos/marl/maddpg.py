@@ -23,8 +23,13 @@ massive_marl_tpu/algos/marl/maddpg.py).
     are summed, so each agent's gradient is its own.
 The rollout's normal draws go through `_normal` ([E, N, act]), the row
 indices through `_rows`.  A checkpoint ({"actor_params", "critic_params",
-"iteration"}) is the JAX runner's file.  A device mesh is not ported yet
-and raises NotImplementedError (ROADMAP A.9).
+"iteration"}) is the JAX runner's file.
+
+Under a `mesh` (parallel/mesh.py) each rank steps its E / R envs and its
+ring holds their columns (the env axis, axis 1).  The sampled rows are
+drawn alike on every rank and each carries every env, so the ranks hold
+equal shares of a batch: the critics' and actors' gradients and the critic
+loss are averaged over them.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos.marl.nets import lecun_dense
 from massive_marl_tpu_torch.algos.rl.ppo import AdamState, adam_update
 from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -143,9 +149,6 @@ class MaddpgRunner:
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, runner on {self.device}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device MADDPG training is not ported yet "
-                                      "(ROADMAP A.9)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.env = env
@@ -158,8 +161,11 @@ class MaddpgRunner:
         self.act_dim = env.num_actions
         self.obs_dim = env.num_ant_obs + (env.num_obs - env.num_agents * env.num_ant_obs)
         self.share_dim = env.num_obs
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         self.state: MaddpgState | None = None
         self.last_metrics: Dict[str, float] = {}
         self.grad_steps = 0       # gradient steps taken by this runner
@@ -180,7 +186,7 @@ class MaddpgRunner:
         actor, critic = (tree_map(lambda x: x.to(dev), t) for t in self.init_params())
         zeros = lambda tree: AdamState(mu=[torch.zeros_like(p) for p in tree_leaves(tree)],
                                        nu=[torch.zeros_like(p) for p in tree_leaves(tree)])
-        E, R, N, bf = self.num_envs, c.replay_size, self.N, torch.bfloat16
+        E, R, N, bf = self.local_envs, c.replay_size, self.N, torch.bfloat16
         z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)
         replay = MaddpgReplay(
             obs=z(R, E, N, self.obs_dim, dtype=bf), share=z(R, E, self.share_dim, dtype=bf),
@@ -196,7 +202,8 @@ class MaddpgRunner:
 
     # ------------------------------------------------------------ random draws
     def _normal(self, shape):
-        return torch.randn(shape, generator=self.generator, device=self.device)
+        """The rollout's noise [E, N, act] (over the global envs under a mesh)."""
+        return draw(torch.randn, shape, self.generator, device=self.device)
 
     def _rows(self, count: int):
         """batch_size ring rows drawn uniformly from [0, max(count, 1))."""
@@ -224,8 +231,8 @@ class MaddpgRunner:
     def _grad_update(self, st: MaddpgState):
         """One gradient step on B ring rows (B x E samples); returns the mean
         critic loss over the agents (a 0-d tensor)."""
-        c, rp = self.cfg, st.replay
-        B, E, N = c.batch_size, self.num_envs, self.N
+        c, rp, mesh = self.cfg, st.replay, self.mesh
+        B, E, N = c.batch_size, self.local_envs, self.N
         idx = self._rows(rp.count)
         rows = lambda t: t.index_select(0, idx).reshape(B * E, *t.shape[2:]).float()
         share, nshare = rows(rp.share), rows(rp.next_share)
@@ -239,16 +246,17 @@ class MaddpgRunner:
         c_req = _requiring_grad(st.critic_params)
         closs = ((self._q_all(tree_unflatten(st.critic_params, c_req), share, joint[None])
                   - target) ** 2).mean(1)
-        adam_update(tree_leaves(st.critic_params), list(torch.autograd.grad(closs.sum(), c_req)),
-                    st.critic_opt, c.lr)
+        *cgrad, closs = mesh.mean(list(torch.autograd.grad(closs.sum(), c_req))
+                                  + [closs.detach()])
+        adam_update(tree_leaves(st.critic_params), cgrad, st.critic_opt, c.lr)
         # every actor against its updated critic; the others' actions from the ring
         a_req = _requiring_grad(st.actor_params)
         a = self._act_all(tree_unflatten(st.actor_params, a_req), obs)         # [BE, N, act]
         own = torch.eye(N, dtype=torch.bool, device=self.device)[:, None, :, None]
         mixed = torch.where(own, a.transpose(0, 1)[:, :, None], acts[None])      # [N, BE, N, act]
         aloss = -self._q_all(st.critic_params, share, mixed.reshape(N, B * E, -1)).mean(1)
-        adam_update(tree_leaves(st.actor_params), list(torch.autograd.grad(aloss.sum(), a_req)),
-                    st.actor_opt, c.lr)
+        adam_update(tree_leaves(st.actor_params),
+                    mesh.mean(list(torch.autograd.grad(aloss.sum(), a_req))), st.actor_opt, c.lr)
         with torch.no_grad():
             for tgt, src in ((st.target_actor, st.actor_params),
                              (st.target_critic, st.critic_params)):
@@ -268,7 +276,7 @@ class MaddpgRunner:
             a = self._act_all(st.actor_params, obs)
             a = torch.clamp(a + c.act_noise * self._normal(a.shape), -c.clip_actions,
                             c.clip_actions)
-            nxt = self.env.step_batch(st.env_state, a.reshape(self.num_envs, -1))
+            nxt = self.env.step_batch(st.env_state, a.reshape(self.local_envs, -1))
             nobs, nshare = self._views(torch.clamp(nxt.obs, -c.clip_obs, c.clip_obs))
             bf = torch.bfloat16
             for dst, src in zip(rp.tensors(), (obs.to(bf), share.to(bf), a.to(bf), nxt.reward,
@@ -290,7 +298,8 @@ class MaddpgRunner:
         st = self.state
         rews, closses = zip(*(self._env_step(st, update) for _ in range(self.cfg.nsteps)))
         st.iteration += 1
-        return dict(mean_reward=torch.stack(rews).mean(), critic_loss=torch.stack(closses).mean())
+        return dict(mean_reward=self.mesh.mean(torch.stack(rews).mean()),
+                    critic_loss=torch.stack(closses).mean())
 
     # ---------------------------------------------------------------- driving
     def run(self, num_iterations: int | None = None, log_interval: int = 1):

@@ -22,8 +22,12 @@ tree in flax's layout ({"params": {"encoder": {"LayerNorm_0", "Dense_0",
 "LayerNorm_1", "Dense_1"}, "decoder": {"embed_act", "blks_i", "ln_out",
 "head", "log_std"}}}, Dense kernels [in, out]), so a checkpoint
 ({"params", "iteration"}) is the JAX runner's file.  The rollout's normal
-draws go through `_normal` ([E, act] per agent and step).  A device mesh is
-not ported yet and raises NotImplementedError (ROADMAP A.9).
+draws go through `_normal` ([E, act] per agent and step).
+
+Under a `mesh` (parallel/mesh.py) each rank steps its E / R envs and holds
+an equal share of the full batch: the advantages are normalised by their
+global mean and std, and the value normalizer's moments, the gradients and
+the losses are averaged over the ranks.
 """
 from __future__ import annotations
 
@@ -39,9 +43,11 @@ import torch.nn.functional as F
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos.marl import nets
 from massive_marl_tpu_torch.algos.marl.runner import episode_returns
+from massive_marl_tpu_torch.algos.nets import orthogonal_
 from massive_marl_tpu_torch.algos.rl.offpolicy import dense, init_dense
 from massive_marl_tpu_torch.algos.rl.ppo import AdamState, adam_update
 from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -127,7 +133,7 @@ class MatModel:
                **{f"Block_{i}": blk() for i in range(self.blocks)},
                "LayerNorm_1": ln(e), "Dense_1": lin(e, 1)}
         head = torch.empty(e, self.act_dim)
-        torch.nn.init.orthogonal_(head, gain=0.01, generator=generator)
+        orthogonal_(head, 0.01, generator)
         dec = {"embed_act": lin(self.act_dim, e),
                **{f"blks_{i}": blk() for i in range(self.blocks)},
                "ln_out": ln(e), "head": {"kernel": head, "bias": torch.zeros(self.act_dim)},
@@ -229,9 +235,6 @@ class MatRunner:
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, runner on {self.device}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device MAT training is not ported yet "
-                                      "(ROADMAP A.9)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.env = env
@@ -245,8 +248,11 @@ class MatRunner:
         self.obs_dim = env.num_ant_obs + (env.num_obs - env.num_agents * env.num_ant_obs)
         c = self.cfg
         self.model = MatModel(self.act_dim, c.embed, c.blocks, c.heads)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         self.state: MatTrainState | None = None
         self.last_metrics: Dict[str, float] = {}
 
@@ -255,7 +261,7 @@ class MatRunner:
         g.manual_seed(self.seed)
         params = tree_map(lambda x: x.to(self.device), self.model.init(self.obs_dim, g))
         leaves = tree_leaves(params)
-        E = self.num_envs
+        E = self.local_envs
         zeros = lambda dtype=torch.float32: torch.zeros(E, dtype=dtype, device=self.device)
         self.state = MatTrainState(
             params=params, opt=AdamState(mu=[torch.zeros_like(p) for p in leaves],
@@ -265,7 +271,8 @@ class MatRunner:
         return self.state
 
     def _normal(self, shape):
-        return torch.randn(shape, generator=self.generator, device=self.device)
+        """[E, act] (over the global envs under a mesh)."""
+        return draw(torch.randn, shape, self.generator, device=self.device)
 
     def _obs_view(self, obs_buf):
         """[E, full] -> the clipped per-agent obs [E, N, obs_dim]."""
@@ -300,7 +307,7 @@ class MatRunner:
         trajectory (obs [T,E,N,obs], actions [T,E,N,act], logp, value,
         reward, done)."""
         cfg, st = self.cfg, self.state
-        E = self.num_envs
+        E = self.local_envs
         env_state, steps = st.env_state, []
         for _ in range(cfg.episode_length):
             obs = self._obs_view(env_state.obs)
@@ -338,7 +345,7 @@ class MatRunner:
                      ) -> Dict[str, torch.Tensor]:
         """GAE on the denormalized team values and ppo_epoch full-batch
         steps; returns the iteration's metrics (device tensors)."""
-        cfg, st = self.cfg, self.state
+        cfg, st, mesh = self.cfg, self.state, self.mesh
         T, E = traj["reward"].shape
         with torch.no_grad():
             _, last_v = self.model.encode(st.params, self._obs_view(last_obs))
@@ -352,7 +359,8 @@ class MatRunner:
                 out.append(adv)
             adv = torch.stack(out[::-1])
             returns = adv + v_den
-            adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
+            mean, std = mesh.mean_std(adv)
+            adv_n = (adv - mean) / (std + 1e-5)
         rows = T * E
         batch = dict(obs=traj["obs"].reshape(rows, self.N, -1),
                      actions=traj["actions"].reshape(rows, self.N, -1),
@@ -360,17 +368,22 @@ class MatRunner:
                      adv=adv_n.reshape(rows), returns=returns.reshape(rows))
         leaves = tree_leaves(st.params)
         pl, vl = [], []
+        ret = batch["returns"]
+        moments = None if mesh is LOCAL else tuple(mesh.mean([ret.mean(), (ret * ret).mean()]))
         for _ in range(cfg.ppo_epoch):
-            st.vnorm = st.vnorm.update(batch["returns"])
+            st.vnorm = st.vnorm.update(ret, moments)
             req = [p.detach().requires_grad_() for p in leaves]
             loss, (p_loss, v_loss) = self._loss(tree_unflatten(st.params, req), st.vnorm, batch)
             grads = list(torch.autograd.grad(loss, req))
+            if mesh is not LOCAL:
+                *grads, p_loss, v_loss = mesh.mean(grads + [p_loss, v_loss])
             adam_update(leaves, grads, st.opt, cfg.lr, cfg.max_grad_norm, eps=1e-5)
             pl.append(p_loss)
             vl.append(v_loss)
         st.iteration += 1
-        return dict(mean_reward=traj["reward"].mean(), policy_loss=torch.stack(pl).mean(),
-                    value_loss=torch.stack(vl).mean(), **episode_returns(st, traj))
+        return dict(mean_reward=mesh.mean(traj["reward"].mean()),
+                    policy_loss=torch.stack(pl).mean(), value_loss=torch.stack(vl).mean(),
+                    **episode_returns(st, traj, mesh))
 
     def train_iter(self):
         traj = self.rollout_phase()

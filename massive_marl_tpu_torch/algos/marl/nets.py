@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from massive_marl_tpu_torch.algos.nets import f32_wgrad_on, orthogonal_
 from massive_marl_tpu_torch.algos.rl.offpolicy import init_dense
 
 EPS = 1e-6  # flax.linen.LayerNorm default epsilon
@@ -46,7 +47,7 @@ def orthogonal(num_agents: int, shape, gain: float, generator: torch.Generator):
     """[N, in, out]: one orthogonal matrix per agent, scaled by gain."""
     out = torch.empty((num_agents,) + tuple(shape))
     for n in range(num_agents):
-        torch.nn.init.orthogonal_(out[n], gain=gain, generator=generator)
+        orthogonal_(out[n], gain, generator)
     return out
 
 
@@ -81,10 +82,83 @@ def layer_norm(p, x, out_dtype=None):
     return y if out_dtype is None else y.to(out_dtype)
 
 
+class _WeightGradF32(torch.autograd.Function):
+    """x^T dy of bf16 rows x [N, M, K] and dy [N, M, H] as a float32 row sum
+    [N, K, H].  Its backward is the plain bf16 product's (the cotangent
+    rounded to bf16, bf16 products), so a double backward through it does
+    the plain graph's arithmetic."""
+
+    @staticmethod
+    def forward(ctx, x3, d3):
+        ctx.save_for_backward(x3, d3)
+        return torch.bmm(x3.transpose(1, 2).float(), d3.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        x3, d3 = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        return torch.bmm(d3, gb.transpose(1, 2)), torch.bmm(x3, gb)
+
+
+class _BmmBf16(torch.autograd.Function):
+    """bmm(x, bf16(w)) of a bf16 x [N, M, K] and a float32 w [N, K, H]: the
+    plain product, with w's gradient a float32 row sum (_WeightGradF32)."""
+
+    @staticmethod
+    def forward(ctx, x3, w):
+        ctx.save_for_backward(x3, w)
+        return torch.bmm(x3, w.to(torch.bfloat16))
+
+    @staticmethod
+    def backward(ctx, g):
+        x3, w = ctx.saved_tensors
+        return _BmmBf16.apply(g, w.transpose(1, 2)), _WeightGradF32.apply(x3, g)
+
+
+class _DenseBf16(torch.autograd.Function):
+    """dense_bf16 on a bf16 x: the forward and dx of the plain expression,
+    float32 row sums for the kernel and bias (algos/nets.f32_weight_grads).
+    The backward is built of differentiable products (_BmmBf16,
+    _WeightGradF32), so a double backward (HATRPO's Fisher-vector product)
+    gives float32 row sums as well."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return _bmm(x, w.to(torch.bfloat16)) + _vec(b.to(torch.bfloat16), x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        n = x.shape[0]
+        d3 = dy.reshape(n, -1, dy.shape[-1])
+        x3 = x.reshape(n, -1, x.shape[-1])
+        dx = _BmmBf16.apply(d3, w.transpose(1, 2)).reshape(x.shape)
+        return dx, _WeightGradF32.apply(x3, d3), d3.float().sum(1)
+
+
 def dense_bf16(p, x):
     """flax Dense(dtype=bf16): bf16 product and bias."""
     bf = torch.bfloat16
+    if f32_wgrad_on():
+        return _DenseBf16.apply(x.to(bf), p["kernel"], p["bias"])
     return _bmm(x.to(bf), p["kernel"].to(bf)) + _vec(p["bias"].to(bf), x)
+
+
+def bf16_mask(tree):
+    """Per leaf of a parameter tree (tree_leaves order): whether it is the
+    kernel or bias of a base's bf16 Dense block."""
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        else:
+            out.append(len(path) >= 3 and path[-3].startswith("MLPBase")
+                       and path[-2].startswith("Dense_"))
+    walk(tree, ())
+    return out
 
 
 def dense_f32(p, x):
@@ -308,9 +382,14 @@ class ValueNorm:
         var = torch.clamp_min(msq - m ** 2, 1e-2)
         return m, var
 
-    def update(self, batch) -> "ValueNorm":
-        flat = batch.reshape(*self.mean.shape, -1)
-        m, msq = flat.mean(-1), (flat ** 2).mean(-1)
+    def update(self, batch, moments=None) -> "ValueNorm":
+        """The stats after one batch; `moments` gives the batch's (mean,
+        mean of squares) when they are not its own (a mesh's global
+        ones)."""
+        if moments is None:
+            flat = batch.reshape(*self.mean.shape, -1)
+            moments = flat.mean(-1), (flat ** 2).mean(-1)
+        m, msq = moments
         w = self.beta
         return ValueNorm(mean=self.mean * w + m * (1 - w),
                          mean_sq=self.mean_sq * w + msq * (1 - w),
@@ -334,7 +413,7 @@ class ValueNorm:
         self.debias[i] = other.debias
 
 
-def norm_targets(vn: ValueNorm, ret, mode: str):
+def norm_targets(vn: ValueNorm, ret, mode: str, moments=None):
     """Stats update + normalized value targets with the per-loss-call
     cadence of the reference trainers.  Returns (vn', rn_clipped, rn_original).
 
@@ -346,14 +425,17 @@ def norm_targets(vn: ValueNorm, ret, mode: str):
     mode='valuenorm': one update(), both errors share the stats
       (mappo_trainer.py:74-78).
     mode='none': raw returns pass through.
+    moments: None, or a function of ret giving the (mean, mean of squares)
+    that update() takes (a mesh's global ones), called once.
     """
+    mom = moments(ret) if moments is not None and mode != "none" else None
     if mode == "popart":
-        vn1 = vn.update(ret)
+        vn1 = vn.update(ret, mom)
         rn_c = vn1.normalize(ret)
-        vn2 = vn1.update(ret)
+        vn2 = vn1.update(ret, mom)
         return vn2, rn_c, vn2.normalize(ret)
     if mode == "valuenorm":
-        vn = vn.update(ret)
+        vn = vn.update(ret, mom)
         rn = vn.normalize(ret)
         return vn, rn, rn
     return vn, ret, ret

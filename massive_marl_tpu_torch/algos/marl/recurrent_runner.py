@@ -30,6 +30,15 @@ Random draws go through `_normal` (the rollout's noise, [E, N, act]),
 `_chunk_perm` and `_agent_perm`, so the tests can feed both packages the
 same numbers.  The checkpoint is the parent's file (the JAX runner's, GRU
 leaves included); the hidden states are not in it, as in the reference.
+
+Under a `mesh` the update is the single-process one (GSPMD in the JAX
+package), on the parent's global path: each rank holds its E / R envs'
+chunks, the chunk permutation is drawn over every rank's chunks and each
+rank keeps its own, and the losses, gradients and value-norm moments are
+sums over its rows divided by the global minibatch size, summed over the
+ranks.  A MAPPO/IPPO minibatch then holds a different number of a rank's
+chunks for each agent, so each agent steps on its own (the agents are
+independent, as the single-process joint step is).
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from massive_marl_tpu_torch.algos.marl.runner import (AdamState, MarlConfig, Mar
                                                       MarlTrainState, _nested_mean,
                                                       episode_returns)
 from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
+from massive_marl_tpu_torch.parallel.mesh import draw
 from massive_marl_tpu_torch.utils.tree import tree_map
 
 
@@ -97,7 +107,7 @@ class RecurrentMarlRunner(MarlRunner):
         self.H = c.hidden_size
         self.L = int(L) if L else c.episode_length
         self.chunked = c.episode_length // self.L > 1
-        self.use_fused = False
+        self.use_fused = self.shard_local = False
         self.actor = nets.MarlActorRNN(act_dim=self.act_dim, hidden_size=c.hidden_size,
                                        layer_n=c.layer_n, gain=c.gain,
                                        std_x_coef=c.std_x_coef, std_y_coef=c.std_y_coef)
@@ -105,7 +115,7 @@ class RecurrentMarlRunner(MarlRunner):
 
     def init_state(self) -> RecurrentMarlTrainState:
         st = super().init_state()
-        zeros = lambda: torch.zeros(self.N, self.num_envs, self.H, device=self.device)
+        zeros = lambda: torch.zeros(self.N, self.local_envs, self.H, device=self.device)
         self.state = RecurrentMarlTrainState(
             **{f.name: getattr(st, f.name) for f in dataclasses.fields(st)},
             actor_h=zeros(), critic_h=zeros())
@@ -113,7 +123,8 @@ class RecurrentMarlRunner(MarlRunner):
 
     # ------------------------------------------------------------ random draws
     def _normal(self, shape):
-        return torch.randn(shape, generator=self.generator, device=self.device)
+        """The rollout's noise [E, N, act] (over the global envs under a mesh)."""
+        return draw(torch.randn, shape, self.generator, device=self.device)
 
     def _chunk_perm(self, C: int):
         return torch.randperm(C, generator=self.generator, device=self.device)
@@ -130,7 +141,7 @@ class RecurrentMarlRunner(MarlRunner):
         rollout-start hiddens ah0/ch0 [N, E, H] and, when chunked, the
         pre-step hiddens ah/ch [T, N, E, H]."""
         cfg, st = self.cfg, self.state
-        E, N, A = self.num_envs, self.N, self.act_dim
+        E, N, A = self.local_envs, self.N, self.act_dim
         env_state, ah, ch = st.env_state, st.actor_h, st.critic_h
         steps = []
         for _ in range(cfg.episode_length):
@@ -173,7 +184,7 @@ class RecurrentMarlRunner(MarlRunner):
             out.append(adv)
         adv = torch.stack(out[::-1], dim=1)
         flat = adv.reshape(adv.shape[0], -1)
-        mean, std = flat.mean(1), flat.std(1, correction=0)
+        mean, std = self.mesh.mean_std(flat, dim=1)
         lead = lambda s: s.reshape(-1, 1, 1)
         return (adv - lead(mean)) / (lead(std) + 1e-5), adv + v
 
@@ -205,23 +216,48 @@ class RecurrentMarlRunner(MarlRunner):
         ao, co = opt_view(st.actor_opt), opt_view(st.critic_opt)
         n, C = data["obs"].shape[0], data["obs"].shape[2]
         nmb = max(1, cfg.num_mini_batch)
-        mbs = C // nmb
+        Cg = C * self.mesh.size            # every rank's chunks
+        mbs = Cg // nmb
+        take = lambda d, ix: {k: _take(v, ix, _CHUNK_AXIS.get(k, 2)) for k, v in d.items()}
         al, vl = [], []
         for _ in range(cfg.ppo_epoch):
+            # each minibatch: (agents of the step, their data) per step
             if nmb == 1:
-                chunks = [data]
+                steps = [[(slice(0, n), data)]]
             else:
-                ix = torch.stack([self._chunk_perm(C)[: nmb * mbs] for _ in range(n)])
+                ix = torch.stack([self._chunk_perm(Cg)[: nmb * mbs] for _ in range(n)])
                 ix = ix.reshape(n, nmb, mbs)
-                chunks = [{k: _take(v, ix[:, j], _CHUNK_AXIS.get(k, 2)) for k, v in data.items()}
-                          for j in range(nmb)]
+                if not self._glob:
+                    steps = [[(slice(0, n), take(data, ix[:, j]))] for j in range(nmb)]
+                else:
+                    one = lambda i, j: take({k: v[i:i + 1] for k, v in data.items()},
+                                            self.mesh.local_index(ix[i, j], self.num_envs)[None])
+                    steps = [[(slice(i, i + 1), one(i, j)) for i in range(n)]
+                             for j in range(nmb)]
             al.append([])
             vl.append([])
-            for d in chunks:
-                a_apply, c_apply, mb = self._loss_inputs(d)
-                vn, a_n, v_n = self._update_once(a_apply, c_apply, ap, ao, cp, co, vn, mb, agents)
-                al[-1].append(a_n)
-                vl[-1].append(v_n)
+            for step in steps:
+                a_parts, v_parts = [], []
+                for sl, d in step:
+                    a_apply, c_apply, mb = self._loss_inputs(d)
+                    whole = sl.stop - sl.start == n
+                    sub = (lambda t: t) if whole else \
+                        (lambda t, sl=sl: tree_map(lambda x: x[sl], t))
+                    sub_opt = (lambda o: o) if whole else \
+                        (lambda o, sl=sl: AdamState([m[sl] for m in o.mu], [v[sl] for v in o.nu], []))
+                    vn_i, a_n, v_n = self._update_once(
+                        a_apply, c_apply, sub(ap), sub_opt(ao), sub(cp), sub_opt(co),
+                        vn if whole else vn.index(sl), mb,
+                        slice(agents.start + sl.start, agents.start + sl.stop),
+                        n=mbs * self.L)
+                    if whole:
+                        vn = vn_i
+                    else:
+                        vn.assign(sl, vn_i)
+                    a_parts.append(a_n)
+                    v_parts.append(v_n)
+                al[-1].append(torch.cat(a_parts))
+                vl[-1].append(torch.cat(v_parts))
         return vn, al, vl
 
     def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor, *,
@@ -264,8 +300,9 @@ class RecurrentMarlRunner(MarlRunner):
             aloss = _nested_mean([[x.mean() for x in e] for e in al])
             vloss = _nested_mean([[x.mean() for x in e] for e in vl])
         st.iteration += 1
-        return dict(mean_reward=traj["reward"].mean(), value_loss=vloss, policy_loss=aloss,
-                    done_frac=traj["done"].mean(), **episode_returns(st, traj))
+        reward, done = self.mesh.mean([traj["reward"].mean(), traj["done"].mean()])
+        return dict(mean_reward=reward, value_loss=vloss, policy_loss=aloss,
+                    done_frac=done, **episode_returns(st, traj, self.mesh))
 
     def _happo(self, data, perm):
         """The agents one after another in `perm` (default: a random order),

@@ -41,11 +41,29 @@ With a `log_dir`, `run` logs train/*, perf/fps and the episode returns
 iterations; a checkpoint is the JAX runner's own file
 (utils/bridge.marl_state_to_flax), in the structure of cfg.optimizer, so
 either package restores the other's.  `eval` runs deterministic episodes
-in dedicated envs (every `eval_interval` iterations under `use_eval`).  A
-device mesh is not ported yet and raises NotImplementedError (ROADMAP A.9).
+in dedicated envs (every `eval_interval` iterations under `use_eval`).
+
+Under a `mesh` (parallel/mesh.py) each rank steps its E / R envs, GAE is
+local and the advantages are normalised by each agent's global mean and
+population std.  The updates follow the JAX package's two families:
+  * the fused path is shard-local, as JAX's shard_map is: each rank forms
+    its minibatches from one permutation of its own rows (the same draw on
+    every rank), and the gradients, losses, value-norm statistics and
+    HATRPO's Fisher products and line-search values are averaged over the
+    ranks (pmean);
+  * the flax-mirror path is the single-process update (GSPMD): every rank
+    draws the permutation of the global rows and keeps its own, and its
+    losses, gradients, value-norm moments and Fisher products are sums over
+    its rows divided by the global batch size, summed over the ranks; the
+    bf16 layers' weight-gradient and Fisher-product sums are float32 (their
+    backward is double-differentiable, nets._DenseBf16), rounded to bf16
+    once after the sum.
+Conjugate gradient and the line search decide only on all-reduced values,
+which are the same bits on every rank.  The logged means are global.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -56,8 +74,10 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos.marl import fused_nets, nets
+from massive_marl_tpu_torch.algos.nets import f32_weight_grads, round_bf16
 from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
 from massive_marl_tpu_torch.ops.fused_mlp import feature_norm
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -277,11 +297,11 @@ class MarlTrainState:
     ep_count: torch.Tensor | None = None     # [E] completed episodes
 
 
-def episode_returns(st, traj) -> Dict[str, torch.Tensor]:
+def episode_returns(st, traj, mesh=LOCAL) -> Dict[str, torch.Tensor]:
     """Advance st's per-env episode-return accumulators (ep_ret,
     last_ep_ret, ep_count; reference runner.py:145-163) over traj's [T, E]
     reward and done; the mean return of the envs' last completed episodes
-    and the number of envs with one."""
+    and the number of envs with one (over every rank's envs)."""
     ep, last, cnt = st.ep_ret, st.last_ep_ret, st.ep_count
     for r, d in zip(traj["reward"], traj["done"]):
         ep = ep + r
@@ -291,19 +311,20 @@ def episode_returns(st, traj) -> Dict[str, torch.Tensor]:
         ep = torch.where(fin, 0.0, ep)
     st.ep_ret, st.last_ep_ret, st.ep_count = ep, last, cnt
     have = cnt > 0
-    return dict(episode_rewards=torch.where(have, last, 0.0).sum() / torch.clamp_min(have.sum(), 1),
-                episodes_done=have.sum())
+    total, count = mesh.sum([torch.where(have, last, 0.0).sum(), have.sum()])
+    return dict(episode_rewards=total / torch.clamp_min(count, 1), episodes_done=count)
 
 
 def _flat(ts):
     return torch.cat([t.reshape(-1) for t in ts])
 
 
-def _mean_kl(mean, std, mean_o, std_o):
+def _mean_kl(mean, std, mean_o, std_o, n=None):
     """Mean over the batch of KL(N(mean_o, std_o) || N(mean, std)), summed
-    over the action dims."""
-    return torch.mean(torch.sum(torch.log(std / std_o) + (std_o ** 2 + (mean_o - mean) ** 2)
-                                / (2.0 * std ** 2) - 0.5, dim=-1))
+    over the action dims; with `n`, the sum over the batch divided by n."""
+    kl = torch.sum(torch.log(std / std_o) + (std_o ** 2 + (mean_o - mean) ** 2)
+                   / (2.0 * std ** 2) - 0.5, dim=-1)
+    return torch.mean(kl) if n is None else kl.sum() / n
 
 
 def _nested_mean(groups):
@@ -320,9 +341,6 @@ class MarlRunner:
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, runner on {self.device}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device MARL updates are not ported yet "
-                                      "(ROADMAP A.9)")
         c = self.cfg = cfg or MarlConfig()
         if c.algorithm_name not in ("mappo", "ippo", "happo", "hatrpo"):
             raise ValueError(f"unknown MARL algorithm {c.algorithm_name!r}")
@@ -363,8 +381,13 @@ class MarlRunner:
         self.critic = nets.MarlCritic(hidden_size=c.hidden_size, layer_n=c.layer_n)
         self.actor_tx = self._make_tx(c.lr, num_envs)
         self.critic_tx = self._make_tx(c.critic_lr, num_envs)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        # under a mesh, the fused update is shard-local (see the module doc)
+        self.shard_local = self.use_fused
+        self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         self.state: MarlTrainState | None = None
         self.last_metrics: Dict[str, float] = {}
         # HATRPO: per agent of the last update, the Fisher-vector products,
@@ -391,7 +414,7 @@ class MarlRunner:
         to_dev = lambda tree: tree_map(lambda x: x.to(self.device), tree)
         ap = to_dev(self.actor.init(self.N, self.obs_dim, g))
         cp = to_dev(self.critic.init(self.N, self.critic_in_dim, g))
-        E = self.num_envs
+        E = self.local_envs
         zeros = lambda dtype=torch.float32: torch.zeros(E, dtype=dtype, device=self.device)
         self.state = MarlTrainState(
             actor_params=ap, critic_params=cp,
@@ -415,7 +438,7 @@ class MarlRunner:
         """episode_length steps of every agent's policy and the env step;
         advances state.env_state and returns the trajectory dict."""
         cfg, st = self.cfg, self.state
-        E = self.num_envs
+        E = self.local_envs
         max_ep_len = getattr(self.env, "max_episode_length", None)
         env_state = st.env_state
         steps = []
@@ -423,7 +446,7 @@ class MarlRunner:
             obs_buf = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
             obs, cin = self._agent_views(obs_buf)
             mean, std = self.actor.apply(st.actor_params, obs)              # [N,E,act]
-            noise = torch.randn(mean.shape, generator=self.generator, device=self.device)
+            noise = draw(torch.randn, mean.shape, self.generator, axis=1, device=self.device)
             actions = mean + std * noise
             logp = nets.normal_log_prob(mean, std, actions)                 # [N,E]
             values = self.critic.apply(st.critic_params, cin)               # [N,E]
@@ -474,12 +497,46 @@ class MarlRunner:
             returns = torch.stack(out[::-1], dim=1)
             adv = returns - v
         flat = adv.reshape(adv.shape[0], -1)
-        mean, std = flat.mean(1), flat.std(1, correction=0)
+        mean, std = self.mesh.mean_std(flat, dim=1)
         return (adv - _lead(mean, adv)) / (_lead(std, adv) + 1e-5), returns
 
-    def _actor_loss(self, apply, params, mb):
+    # ------------------------------------------------- collectives of a mesh
+    @property
+    def _glob(self) -> bool:
+        """Under a mesh, on the global (flax-mirror, GSPMD) path."""
+        return self.mesh is not LOCAL and not self.shard_local
+
+    def _bmean(self, x, n):
+        """The mean over the last (batch) axis of a batch of n rows over all
+        ranks: the mean of the rank's rows alone or shard-local, else their
+        sum divided by n (the rank's share of the global mean)."""
+        return x.sum(-1) / n if self._glob else x.mean(-1)
+
+    def _reduce(self, xs: list) -> list:
+        """`_bmean`'s values of every rank combined: the identity alone, the
+        mean over the ranks when shard-local (pmean), else the sum."""
+        if self.mesh is LOCAL:
+            return xs
+        return self.mesh.mean(xs) if self.shard_local else self.mesh.sum(xs)
+
+    def _wgrad(self):
+        """On the global path, the bf16 layers' weight gradients are f32
+        partial sums (algos/nets.f32_weight_grads)..."""
+        return f32_weight_grads() if self._glob else contextlib.nullcontext()
+
+    def _round(self, grads, tree):
+        """... which are rounded to bf16 once they are summed (`_reduce`)."""
+        return round_bf16(grads, nets.bf16_mask(tree)) if self._glob else grads
+
+    def _global_rows(self, mask):
+        """A [..., B] mask's sum over the batch, over every rank's rows on
+        the global path."""
+        return self.mesh.sum(mask.sum(-1)) if self._glob else mask.sum(-1)
+
+    def _actor_loss(self, apply, params, mb, n=None):
         """Sum over the batch's agents of the clipped surrogate (times the
-        HAPPO factor) minus the entropy bonus; and the per-agent surrogate."""
+        HAPPO factor) minus the entropy bonus; and the per-agent surrogate.
+        n: the minibatch's global size (`_bmean`)."""
         cfg = self.cfg
         mean, std = apply(params, mb["obs"])
         logp = nets.normal_log_prob(mean, std, mb["actions"])             # [n,B]
@@ -492,15 +549,15 @@ class MarlRunner:
         ent = nets.normal_entropy(std)
         if cfg.use_policy_active_masks:
             act = mb["active"]
-            wsum = torch.clamp_min(act.sum(-1), 1e-8)
+            wsum = torch.clamp_min(self._global_rows(act), 1e-8)
             loss_n = -(obj * act).sum(-1) / wsum
             ent_n = (ent * act).sum(-1) / wsum
         else:
-            loss_n = -obj.mean(-1)
-            ent_n = ent.mean(-1)
+            loss_n = -self._bmean(obj, n)
+            ent_n = self._bmean(ent, n)
         return (loss_n - cfg.entropy_coef * ent_n).sum(), loss_n.detach()
 
-    def _critic_loss(self, apply, params, mb, rn_c, rn_o):
+    def _critic_loss(self, apply, params, mb, rn_c, rn_o, n=None):
         cfg = self.cfg
         values = apply(params, mb["cin"])                                   # [n,B]
         v_clip = mb["values"] + torch.clamp(values - mb["values"],
@@ -513,9 +570,9 @@ class MarlRunner:
         l = torch.maximum(l_o, l_c) if cfg.use_clipped_value_loss else l_o
         if cfg.use_value_active_masks:
             act = mb["active"]
-            vl_n = (l * act).sum(-1) / torch.clamp_min(act.sum(-1), 1e-8)
+            vl_n = (l * act).sum(-1) / torch.clamp_min(self._global_rows(act), 1e-8)
         else:
-            vl_n = l.mean(-1)
+            vl_n = self._bmean(l, n)
         return (cfg.value_loss_coef * vl_n).sum(), vl_n.detach()
 
     @staticmethod
@@ -526,20 +583,29 @@ class MarlRunner:
         return list(torch.autograd.grad(loss, leaves)), aux
 
     def _update_once(self, a_apply, c_apply, ap, ao, cp, co, vn, mb, agents: slice,
-                     actor: bool = True):
+                     actor: bool = True, n: int = 0):
         """One actor step (skipped when not `actor`: HATRPO's critic-only
         epochs, which leave the actor's optimizer as it is), the value-target
         update and one critic step for the agents `agents` (views
-        ap/cp/ao/co/vn already cut to them).  Returns (vn', actor loss [n] or
-        None, value loss [n])."""
+        ap/cp/ao/co/vn already cut to them) on a minibatch of n global rows.
+        Returns (vn', actor loss [n] or None, value loss [n])."""
         st = self.state
         aloss = None
         if actor:
-            agrad, aloss = self._grads(lambda p: self._actor_loss(a_apply, p, mb), ap)
+            with self._wgrad():
+                agrad, aloss = self._grads(lambda p: self._actor_loss(a_apply, p, mb, n), ap)
+            *agrad, aloss = self._reduce(agrad + [aloss])
+            agrad = self._round(agrad, ap)
             self.actor_tx.step(tree_leaves(ap), agrad, ao.mu, ao.nu,
                                st.actor_opt.count[agents.start])
-        vn, rn_c, rn_o = nets.norm_targets(vn, mb["returns"], self.norm_mode)
-        cgrad, vloss = self._grads(lambda p: self._critic_loss(c_apply, p, mb, rn_c, rn_o), cp)
+        moments = None if self.mesh is LOCAL else \
+            (lambda r: tuple(self._reduce([self._bmean(r, n), self._bmean(r * r, n)])))
+        vn, rn_c, rn_o = nets.norm_targets(vn, mb["returns"], self.norm_mode, moments)
+        with self._wgrad():
+            cgrad, vloss = self._grads(lambda p: self._critic_loss(c_apply, p, mb, rn_c, rn_o, n),
+                                       cp)
+        *cgrad, vloss = self._reduce(cgrad + [vloss])
+        cgrad = self._round(cgrad, cp)
         self.critic_tx.step(tree_leaves(cp), cgrad, co.mu, co.nu,
                             st.critic_opt.count[agents.start])
         for opt in (st.actor_opt, st.critic_opt) if actor else (st.critic_opt,):
@@ -558,24 +624,34 @@ class MarlRunner:
         ao, co = opt_view(st.actor_opt), opt_view(st.critic_opt)
         nmb = max(1, cfg.num_mini_batch)
         B = batch["obs"].shape[1]
-        mbs = B // nmb
+        mbs = (B * self.mesh.size if self._glob else B) // nmb
         al, vl = [], []
         for _ in range(cfg.ppo_epoch):
             if nmb == 1:
                 chunks = [batch]
             else:
-                idx = torch.randperm(B, generator=self.generator, device=self.device)
-                idx = idx[: nmb * mbs].reshape(nmb, mbs)
-                chunks = [{k: v[:, ix] for k, v in batch.items()} for ix in idx]
+                chunks = [{k: v[:, ix] for k, v in batch.items()}
+                          for ix in self._minibatches(B, nmb)]
             al.append([])
             vl.append([])
             for mb in chunks:
                 vn, a_n, v_n = self._update_once(a_apply, c_apply, ap, ao, cp, co, vn, mb,
-                                                 agents, actor)
+                                                 agents, actor, mbs)
                 if actor:
                     al[-1].append(a_n)
                 vl[-1].append(v_n)
         return vn, al, vl
+
+    def _minibatches(self, B: int, nmb: int):
+        """One epoch's minibatches of the rank's B rows: nmb index tensors
+        of contiguous chunks of a fresh permutation, the remainder dropped.
+        On the global path under a mesh the permutation is of every rank's
+        rows (T-major, num_envs a step) and each chunk keeps the rank's."""
+        Bp = B * self.mesh.size if self._glob else B
+        mbs = Bp // nmb
+        idx = torch.randperm(Bp, generator=self.generator, device=self.device)
+        idx = idx[: nmb * mbs].reshape(nmb, mbs)
+        return [self.mesh.local_index(ix, self.num_envs) for ix in idx] if self._glob else idx
 
     def _update_nets(self):
         """(actor apply, critic apply, input normalization) of the update:
@@ -614,20 +690,25 @@ class MarlRunner:
             ap, [c.view_as(p) for c, p in zip(torch.split(v, sizes), leaves)])
         obs = batch["obs"]
 
+        n = obs.shape[1] * self.mesh.size    # the batch's global rows
+
         def surrogate(mean, std):
             logp = nets.normal_log_prob(mean, std, batch["actions"])
-            obj = batch["factor"] * torch.exp(logp - batch["logp"]) * batch["adv"]
+            obj = (batch["factor"] * torch.exp(logp - batch["logp"]) * batch["adv"]).reshape(-1)
             if cfg.use_policy_active_masks:
-                act = batch["active"]
-                return (obj * act).sum() / torch.clamp_min(act.sum(), 1e-8)
-            return obj.mean()
+                act = batch["active"].reshape(-1)
+                return (obj * act).sum() / torch.clamp_min(self._global_rows(act), 1e-8)
+            return self._bmean(obj, n)
 
         req = [p.detach().clone().requires_grad_() for p in leaves]
-        mean, std = a_apply(tree_unflatten(ap, req), obs)
+        with self._wgrad():
+            mean, std = a_apply(tree_unflatten(ap, req), obs)
         mean_o, std_o = mean.detach(), std.detach()
         surr = surrogate(mean, std)
-        g = _flat(torch.autograd.grad(surr, req, retain_graph=True))
-        fvp = self._fvp(ap, obs, req, mean, std)
+        *g, surr_all = self._reduce(list(torch.autograd.grad(surr, req, retain_graph=True))
+                                    + [surr.detach()])
+        g = _flat(self._round(g, ap))
+        fvp = self._fvp(ap, obs, req, mean, std, n)
         fvps = 0
         x, r, p = torch.zeros_like(g), g.clone(), g.clone()
         rs = torch.dot(r, r)
@@ -645,7 +726,7 @@ class MarlRunner:
         sfs = torch.dot(x, fvp(x))
         fvps += 1
         full_step = torch.sqrt(2.0 * cfg.kl_threshold / torch.clamp_min(sfs, 1e-10)) * x
-        old_surr = surr.detach()
+        old_surr = surr_all
         expected = torch.dot(g, full_step)
         tried, accepted, new = [], -1, flat0
         with torch.no_grad():
@@ -653,9 +734,9 @@ class MarlRunner:
                 scale = 0.5 ** i
                 cand = flat0 + scale * full_step
                 m, s = a_apply(unravel(cand), obs)
-                improve = surrogate(m, s) - old_surr
+                surr_c, kl = self._reduce([surrogate(m, s), self._kl(m, s, mean_o, std_o, n)])
+                improve = surr_c - old_surr
                 ratio = improve / torch.clamp_min(expected * scale, 1e-10)
-                kl = _mean_kl(m, s, mean_o, std_o)
                 ok = (improve > 0) & (ratio > cfg.accept_ratio) & (kl <= cfg.kl_threshold)
                 *vals, take = torch.stack([improve, ratio, kl, ok.float()]).tolist()
                 tried.append(tuple(vals))
@@ -667,7 +748,11 @@ class MarlRunner:
         self.trpo_log.append(dict(fvps=fvps, candidates=tried, accepted=accepted))
         return -old_surr
 
-    def _fvp(self, ap, obs, req, mean, std):
+    def _kl(self, mean, std, mean_o, std_o, n=None):
+        """_mean_kl of a batch of n global rows, as `_bmean` takes it."""
+        return _mean_kl(mean, std, mean_o, std_o, n if self._glob else None)
+
+    def _fvp(self, ap, obs, req, mean, std, n=None):
         """v -> F v + 0.1 v for one agent at the point (mean, std) =
         a_apply(ap with leaves req, obs), a graph kept for the pullbacks.
 
@@ -677,7 +762,9 @@ class MarlRunner:
         (fused_nets.actor_linearize, kernel B2) and J^T u the pullback of the
         graph, so no forward runs inside the products.  Without the fused
         kernels it is the mean KL's Hessian-vector product, by double
-        backward through the flax-mirror nets."""
+        backward through the flax-mirror nets.  n: the batch's global rows;
+        under a mesh the product is combined over the ranks (`_reduce`)
+        before the damping."""
         cfg = self.cfg
         sizes = [p.numel() for p in req]
         mean_o, std_o = mean.detach(), std.detach()
@@ -693,14 +780,16 @@ class MarlRunner:
                     dmean, dstd = tangent(tree_unflatten(
                         ap, [c.view_as(p) for c, p in zip(torch.split(v, sizes), req)]))
                     u = (dmean / std_o ** 2 / B, 2.0 * dstd / std_o ** 2 / B)
-                return _flat(torch.autograd.grad((mean, std), req, grad_outputs=u,
-                                                 retain_graph=True)) + 0.1 * v
+                Fv = _flat(torch.autograd.grad((mean, std), req, grad_outputs=u,
+                                               retain_graph=True))
+                return self._reduce([Fv])[0] + 0.1 * v
             return fvp
-        gkl = torch.autograd.grad(_mean_kl(mean, std, mean_o, std_o), req, create_graph=True)
+        gkl = torch.autograd.grad(self._kl(mean, std, mean_o, std_o, n), req, create_graph=True)
 
         def fvp(v):
             dot = sum((gk.reshape(-1) * vk).sum() for gk, vk in zip(gkl, torch.split(v, sizes)))
-            return _flat(torch.autograd.grad(dot, req, retain_graph=True)) + 0.1 * v
+            Fv = self._reduce(list(torch.autograd.grad(dot, req, retain_graph=True)))
+            return _flat(self._round(Fv, ap)) + 0.1 * v
         return fvp
 
     def _stacked(self, data, share):
@@ -784,8 +873,9 @@ class MarlRunner:
             aloss, vloss = self._stacked(data, share)
 
         st.iteration += 1
-        return dict(mean_reward=traj["reward"].mean(), value_loss=vloss, policy_loss=aloss,
-                    done_frac=traj["done"].mean(), **episode_returns(st, traj))
+        reward, done = self.mesh.mean([traj["reward"].mean(), traj["done"].mean()])
+        return dict(mean_reward=reward, value_loss=vloss, policy_loss=aloss,
+                    done_frac=done, **episode_returns(st, traj, self.mesh))
 
     def train_iter(self):
         traj = self.rollout_phase()

@@ -21,6 +21,14 @@ population std, the clipped ratio against the detached rollout log-prob,
 plus the unclipped value loss.  As in the JAX package, the config reads no
 `policy` block (the nets are (256, 256)).  Random draws go through
 `_normal` (action noise) and `_uniform` (task angles).
+
+Under a `mesh` (parallel/mesh.py) each slot's envs are split over the
+ranks (axis 1 of the JAX package's [slots, E] env state), each holding an
+equal share.  The meta-gradient is the single-process one: the advantages
+are normalised by their global mean and std, the inner gradient is the
+ranks' mean through a differentiable all-reduce (Mesh.mean_diff, so each
+rank's Hessian meets the global query gradient), and the meta-gradients,
+losses and rewards are averaged over the ranks.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos import nets
 from massive_marl_tpu_torch.algos.rl.ppo import AdamState, adam_update, gae, normalized
 from massive_marl_tpu_torch.envs.base import env_generator
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer
 
@@ -95,8 +104,6 @@ class MAMLPPO:
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, trainer on {self.device}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device meta-RL is not ported yet (ROADMAP A.9)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.env = env
@@ -107,8 +114,11 @@ class MAMLPPO:
         self.print_log = print_log
         self.act_dim = env.num_actions * env.num_agents
         self.obs_dim = env.num_obs
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         init_gen = torch.Generator()
         init_gen.manual_seed(seed)
         self.model = nets.ActorCritic(self.obs_dim, self.act_dim, c.hidden, c.hidden,
@@ -119,7 +129,8 @@ class MAMLPPO:
 
     # ------------------------------------------------------------ random draws
     def _normal(self, shape, generator=None):
-        return torch.randn(shape, generator=generator or self.generator, device=self.device)
+        """Action noise [E, act] (over the global envs under a mesh)."""
+        return draw(torch.randn, shape, generator or self.generator, device=self.device)
 
     def _uniform(self, shape, generator=None):
         """Task angles uniform in (-pi, pi)."""
@@ -132,7 +143,7 @@ class MAMLPPO:
         self.state = MAMLState(
             opt=AdamState(mu=[torch.zeros_like(p) for p in params],
                           nu=[torch.zeros_like(p) for p in params]),
-            env_states=[self.env.reset(self.num_envs) for _ in range(c.meta_batch_size)],
+            env_states=[self.env.reset(self.local_envs) for _ in range(c.meta_batch_size)],
             task_params=self._uniform((c.meta_batch_size,)))
         return self.state
 
@@ -186,7 +197,7 @@ class MAMLPPO:
         with torch.no_grad():
             adv = gae(traj, self._apply(params, last_obs)[1], c.gamma, c.lam)
             returns = adv + traj["value"]
-            adv_n = normalized(adv)
+            adv_n = normalized(adv, self.mesh)
         mean, value, log_std = self._apply(params, traj["obs"])
         ratio = torch.exp(nets.gaussian_log_prob(mean, log_std, traj["actions"])
                           - traj["logp"].detach())
@@ -205,6 +216,7 @@ class MAMLPPO:
             names = list(params)
             grads = torch.autograd.grad(self.pg_loss(params, traj, last),
                                         [params[k] for k in names], create_graph=create_graph)
+            grads = self.mesh.mean_diff(grads) if create_graph else self.mesh.mean(list(grads))
             params = {k: params[k] - c.inner_lr * g for k, g in zip(names, grads)}
         return params, env_state
 
@@ -230,7 +242,9 @@ class MAMLPPO:
             st.env_states[i] = env_state
             losses.append(loss.detach())
             rews.append(qtraj["reward"].mean())
-        return grads, torch.stack(losses).mean(), torch.stack(rews).mean()
+        *grads, loss, rew = self.mesh.mean(grads + [torch.stack(losses).mean(),
+                                                     torch.stack(rews).mean()])
+        return grads, loss, rew
 
     def meta_iter(self):
         """One meta-iteration; returns its metrics (device scalars)."""
@@ -266,12 +280,13 @@ class MAMLPPO:
             self.init_state()
         g = torch.Generator(device=self.device)
         g.manual_seed((self.seed if seed is None else seed) + 20_000)
+        g = self.mesh.shard_generator(g, self.num_envs)
         task_params = self._uniform((n_tasks,), g)
         pres, posts = [], []
         with env_generator(self.env, g):
             for i in range(n_tasks):
-                es = self.env.reset(self.num_envs)
-                pre, post = self.eval_adapt(es, task_params[i], g)
+                es = self.env.reset(self.local_envs)
+                pre, post = self.mesh.mean(list(self.eval_adapt(es, task_params[i], g)))
                 pres.append(float(pre))
                 posts.append(float(post))
         return sum(pres) / n_tasks, sum(posts) / n_tasks

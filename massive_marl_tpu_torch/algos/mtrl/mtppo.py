@@ -18,6 +18,12 @@ Per-task mean rewards are logged apart.  The checkpoint is the JAX
 trainer's file {"params": the flax ActorCritic tree, "iteration"}
 (utils/bridge.mtppo_state_to_flax), so either package restores the other's.
 The action noise goes through `_normal`, in the reference's order.
+
+Under a `mesh` (parallel/mesh.py) each rank steps E / R envs of every task
+and holds an equal share of the joined batch: the advantages are
+normalised by their global mean and std, and the gradients (the bf16
+layers' f32 partial sums, rounded after the mean) and losses are averaged
+over the ranks.  The logged rewards are global.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ import torch
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos import nets
 from massive_marl_tpu_torch.algos.rl.ppo import (AdamState, PPOConfig, adam_update, gae,
-                                                 normalized)
+                                                 grads_or_zeros, normalized)
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer
 from massive_marl_tpu_torch.wrap.multi_task_vec_task import task_obs
@@ -78,9 +85,6 @@ class MTPPO:
                  device=None, mesh=None):
         self.device = resolve_device(device)
         check_devices(envs, self.device)
-        if mesh is not None:
-            raise NotImplementedError("multi-device multi-task training is not ported yet "
-                                      "(ROADMAP A.9)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.envs = envs
@@ -96,8 +100,13 @@ class MTPPO:
         self.max_obs = max(self.obs_dims.values())
         self.max_act = max(self.act_dims.values())
         self.obs_dim = self.max_obs + (self.K if self.cfg.mode == "add-onehot" else 0)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        self.local_envs = num_envs
+        for env in envs.values():
+            self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         init_gen = torch.Generator()
         init_gen.manual_seed(seed)
         c = self.cfg
@@ -116,12 +125,13 @@ class MTPPO:
             opt=AdamState(mu=[torch.zeros_like(p) for p in params],
                           nu=[torch.zeros_like(p) for p in params]),
             lr=torch.tensor(self.cfg.lr, device=self.device),
-            env_states={t: self.envs[t].reset(self.num_envs) for t in self.task_names})
+            env_states={t: self.envs[t].reset(self.local_envs) for t in self.task_names})
         return self.state
 
     def _normal(self, shape):
-        """The action noise of one rollout step."""
-        return torch.randn(shape, generator=self.generator, device=self.device)
+        """The action noise of one rollout step (over the global envs under
+        a mesh)."""
+        return draw(torch.randn, shape, self.generator, device=self.device)
 
     # ---------------------------------------------------------------- collect
     @torch.no_grad()
@@ -146,7 +156,7 @@ class MTPPO:
         traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         last = self._aug_obs(torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs), idx)
         adv = gae(traj, self.model(last)[1], cfg.gamma, cfg.lam)
-        n = cfg.nsteps * self.num_envs
+        n = cfg.nsteps * self.local_envs
         batch = dict(obs=traj["obs"].reshape(n, -1), actions=traj["actions"].reshape(n, -1),
                      logp=traj["logp"].reshape(n), value=traj["value"].reshape(n),
                      adv=adv.reshape(n), returns=(adv + traj["value"]).reshape(n))
@@ -162,9 +172,22 @@ class MTPPO:
         return {k: torch.cat([b[k] for b in batches]) for k in batches[0]}, rewards
 
     # ----------------------------------------------------------------- update
-    @staticmethod
-    def _normalized(batch):
-        return dict(batch, adv=normalized(batch["adv"]))
+    def _normalized(self, batch):
+        return dict(batch, adv=normalized(batch["adv"], self.mesh))
+
+    def _mean_grads(self, fn):
+        """(gradients of fn()'s loss over the model, fn()'s 0-d aux value):
+        under a mesh averaged over the ranks in one collective, the bf16
+        layers' gradients as f32 partial sums rounded after the mean."""
+        params = list(self.model.parameters())
+        if self.mesh is LOCAL:
+            loss, aux = fn()
+            return grads_or_zeros(loss, params), aux
+        with nets.f32_weight_grads():
+            loss, aux = fn()
+            grads = grads_or_zeros(loss, params)
+        *grads, aux = self.mesh.mean(grads + [aux])
+        return nets.round_bf16(grads, nets.MLP.bf16_mask(self.model)), aux
 
     def _loss(self, batch):
         cfg = self.cfg
@@ -186,9 +209,8 @@ class MTPPO:
         params = list(self.model.parameters())
         vlosses = []
         for _ in range(self.cfg.noptepochs):
-            loss, vloss = self._loss(batch)
-            adam_update(params, list(torch.autograd.grad(loss, params)), self.state.opt,
-                        self.state.lr, self.cfg.max_grad_norm)
+            grads, vloss = self._mean_grads(lambda: self._loss(batch))
+            adam_update(params, grads, self.state.opt, self.state.lr, self.cfg.max_grad_norm)
             vlosses.append(vloss)
         return torch.stack(vlosses).mean()
 
@@ -198,6 +220,8 @@ class MTPPO:
         batch, rewards = self.collect_all()
         vloss = self.update(batch)
         self.state.iteration += 1
+        if self.mesh is not LOCAL:
+            rewards = dict(zip(rewards, self.mesh.mean(list(rewards.values()))))
         return rewards, vloss
 
     # ---------------------------------------------------------------- driving

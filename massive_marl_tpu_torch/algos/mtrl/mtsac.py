@@ -19,6 +19,12 @@ The networks are rl/offpolicy's flax-layout trees (init_mlp,
 sg_actor_apply, q_apply, squashed_sample).  Random draws go through
 `_normal` and `_slots`, in the reference's order.  The JAX MTSAC has no
 save/load, so this one has none.
+
+Under a `mesh` (parallel/mesh.py) each rank steps E / R envs of every task
+and the shared ring holds their columns (axis 1).  The slots are drawn
+alike on every rank and carry every env, so the Q and pi gradients and the
+Q loss are averaged over the ranks; a batch's noise is drawn over the
+global rows (parallel/mesh.draw_rows).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from massive_marl_tpu_torch.algos.rl.offpolicy import (OffPolicyConfig, _detache
                                                        init_mlp, q_apply, sg_actor_apply,
                                                        squashed_sample)
 from massive_marl_tpu_torch.algos.rl.ppo import AdamState, adam_update
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw_rows
 from massive_marl_tpu_torch.utils.logging import Writer
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map
 from massive_marl_tpu_torch.wrap.multi_task_vec_task import task_obs
@@ -77,9 +84,6 @@ class MTSAC:
                  device=None, mesh=None):
         self.device = resolve_device(device)
         check_devices(envs, self.device)
-        if mesh is not None:
-            raise NotImplementedError("multi-device multi-task training is not ported yet "
-                                      "(ROADMAP A.9)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.envs = envs
@@ -95,8 +99,13 @@ class MTSAC:
         self.act_dims = {t: envs[t].num_actions * envs[t].num_agents for t in self.task_names}
         self.act_dim = max(self.act_dims.values())
         self.n_hidden = self.cfg.hidden_layer
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        self.local_envs = num_envs
+        for env in envs.values():
+            self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         self.state: MTSACState | None = None
         self.last_metrics: Dict[str, float] = {}
         # cumulative gradient steps taken by this trainer
@@ -119,7 +128,7 @@ class MTSAC:
         params = tree_map(lambda t: t.to(dev).requires_grad_(True), self.init_params())
         zeros = lambda leaves: AdamState(mu=[torch.zeros_like(p) for p in leaves],
                                          nu=[torch.zeros_like(p) for p in leaves])
-        R, E = cfg.replay_size, self.num_envs
+        R, E = cfg.replay_size, self.local_envs
         ring = Ring(obs=torch.zeros((R, E, self.obs_dim), device=dev),
                     actions=torch.zeros((R, E, self.act_dim), device=dev),
                     rewards=torch.zeros((R, E), device=dev), dones=torch.zeros((R, E), device=dev),
@@ -133,7 +142,9 @@ class MTSAC:
 
     # ------------------------------------------------------------ random draws
     def _normal(self, shape):
-        return torch.randn(shape, generator=self.generator, device=self.device)
+        """N(0, 1) over `shape`, whose leading axis is one step's envs or a
+        batch's slots x envs (over the global envs under a mesh)."""
+        return draw_rows(torch.randn, shape, self.generator, device=self.device)
 
     def _slots(self, count: int):
         """batch_size slots drawn uniformly from [0, max(count, 1))."""
@@ -177,7 +188,7 @@ class MTSAC:
         """One Q step, one pi step and the Polyak averaging on a batch drawn
         from the ring; returns the Q loss (a 0-d tensor)."""
         c, st, rp = self.cfg, self.state, self.state.replay
-        B = c.batch_size * self.num_envs
+        B, mesh = c.batch_size * self.local_envs, self.mesh
         idx = self._slots(rp.count)
         o, a = rp.obs[idx].reshape(B, -1), rp.actions[idx].reshape(B, -1)
         r, d = rp.rewards[idx].reshape(B), rp.dones[idx].reshape(B)
@@ -191,16 +202,16 @@ class MTSAC:
         qloss = (torch.mean((self._q(params["q1"], o, a) - backup) ** 2)
                  + torch.mean((self._q(params["q2"], o, a) - backup) ** 2))
         q_leaves = tree_leaves({"q1": params["q1"], "q2": params["q2"]})
-        adam_update(q_leaves, list(torch.autograd.grad(qloss, q_leaves)), st.opt_q, c.lr,
-                    c.max_grad_norm)
+        *qgrad, qloss = mesh.mean(list(torch.autograd.grad(qloss, q_leaves)) + [qloss.detach()])
+        adam_update(q_leaves, qgrad, st.opt_q, c.lr, c.max_grad_norm)
         mu, ls = self._pi(params["pi"], o)
         api, logp = squashed_sample(mu, ls, self._normal(mu.shape))
         q1, q2 = _detached(params["q1"]), _detached(params["q2"])
         ploss = torch.mean(c.ent_coef * logp
                            - torch.minimum(self._q(q1, o, api), self._q(q2, o, api)))
         pi_leaves = tree_leaves(params["pi"])
-        adam_update(pi_leaves, list(torch.autograd.grad(ploss, pi_leaves)), st.opt_pi, c.lr,
-                    c.max_grad_norm)
+        adam_update(pi_leaves, mesh.mean(list(torch.autograd.grad(ploss, pi_leaves))), st.opt_pi,
+                    c.lr, c.max_grad_norm)
         with torch.no_grad():
             t_leaves = tree_leaves(tp)
             torch._foreach_mul_(t_leaves, c.polyak)
@@ -214,6 +225,8 @@ class MTSAC:
         last Q loss or None)."""
         c = self.cfg
         rewards = {t: self.collect(t) for t in self.task_names}
+        if self.mesh is not LOCAL:
+            rewards = dict(zip(rewards, self.mesh.mean(list(rewards.values()))))
         qloss = None
         if self.state.replay.count >= c.batch_size:
             for _ in range(c.noptepochs * c.nminibatches):

@@ -16,7 +16,9 @@ trpo.natural_gradient_step:
   * then vf_epochs full-batch steps of the (unclipped) value loss over all
     parameters with MTPPO's Adam state: p -= lr * Adam(clip(g)).
 MTTRPOConfig.from_cfg_train is MTPPO's: cfg/mttrpo's cg_iters, cg_damping,
-max_kl and backtrack_* are not read, and the defaults hold.
+max_kl and backtrack_* are not read, and the defaults hold.  Under a mesh
+the gradient, Fisher products, line-search values and value steps are
+means over the ranks, as in MTPPO and TRPO.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 
 from massive_marl_tpu_torch.algos import nets
 from massive_marl_tpu_torch.algos.mtrl.mtppo import MTPPO, MTPPOConfig
-from massive_marl_tpu_torch.algos.rl.ppo import adam_update, grads_or_zeros
+from massive_marl_tpu_torch.algos.rl.ppo import adam_update
 from massive_marl_tpu_torch.algos.rl.trpo import natural_gradient_step
 
 
@@ -66,8 +68,8 @@ class MTTRPO(MTPPO):
             return nets.gaussian_kl(mean0, log_std0.expand_as(mean), mean,
                                     log_std.expand_as(mean)).mean()
 
-        _, accepted, search = natural_gradient_step(list(self.model.parameters()), surrogate,
-                                                    mean_kl, self.cfg)
+        _, accepted, search = natural_gradient_step(
+            list(self.model.parameters()), surrogate, mean_kl, self.cfg, self.mesh.mean)
         self.last_search = dict(search, accepted=int(accepted))
 
     def update(self, batch):
@@ -78,10 +80,11 @@ class MTTRPO(MTPPO):
         params = list(self.model.parameters())
         losses = []
         for _ in range(self.cfg.vf_epochs):
-            _, value, _ = self.model(batch["obs"])
-            loss = torch.mean((value - batch["returns"]) ** 2)
-            adam_update(params, grads_or_zeros(loss, params), self.state.opt, self.state.lr,
-                        self.cfg.max_grad_norm)
-            losses.append(loss.detach())
+            def value_loss():
+                loss = torch.mean((self.model(batch["obs"])[1] - batch["returns"]) ** 2)
+                return loss, loss.detach()
+            grads, loss = self._mean_grads(value_loss)
+            adam_update(params, grads, self.state.opt, self.state.lr, self.cfg.max_grad_norm)
+            losses.append(loss)
         return torch.stack(losses).mean()
 

@@ -6,10 +6,19 @@ reference, the hidden layers compute in bf16 (input, weight and bias cast
 to bf16, the matmul result rounded to bf16 before the bias is added, the
 ELU in bf16) while parameters stay float32, and the output head runs in
 float32.  The reference's quirk std = exp(log_std)**2 is kept.
+
+Under `f32_weight_grads()` a bf16 layer's weight and bias gradients are
+float32 sums over the batch rows instead of bf16-rounded ones (its forward
+and input gradient are unchanged): a mesh all-reduces the ranks' f32
+partial sums and rounds the total to bf16 once (`round_bf16`), as a single
+process rounds its whole-batch sum, rather than summing R rounded partial
+sums whose rounding errors need not cancel.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
@@ -18,6 +27,61 @@ from torch import nn
 
 _ACT = {"elu": F.elu, "relu": F.relu, "selu": F.selu, "tanh": torch.tanh,
         "lrelu": F.leaky_relu, "sigmoid": torch.sigmoid}
+
+
+_MODE = threading.local()     # per thread, as torch's grad mode
+
+
+@contextlib.contextmanager
+def f32_weight_grads():
+    """Within the block, the bf16 layers (MLP here, the MARL bases' Dense
+    blocks) give float32 weight and bias gradients (see the module doc)."""
+    prev, _MODE.f32_wgrad = f32_wgrad_on(), True
+    try:
+        yield
+    finally:
+        _MODE.f32_wgrad = prev
+
+
+def f32_wgrad_on() -> bool:
+    return getattr(_MODE, "f32_wgrad", False)
+
+
+def round_bf16(grads, mask):
+    """grads with the leaves where `mask` is true rounded to bf16 (and back
+    to float32): what a bf16 layer's gradient is outside
+    f32_weight_grads()."""
+    return [g.to(torch.bfloat16).to(g.dtype) if m else g for g, m in zip(grads, mask)]
+
+
+def orthogonal_(w: torch.Tensor, gain: float, generator: torch.Generator | None = None):
+    """nn.init.orthogonal_ with its QR on one thread: LAPACK's blocked QR
+    rounds with the number of threads, and every rank of a job must build
+    the bits a process alone builds (parallel/launch.py starts its ranks
+    at one thread, a process alone takes every core)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return nn.init.orthogonal_(w, gain=gain, generator=generator)
+    finally:
+        torch.set_num_threads(threads)
+
+
+class _LinearBf16(torch.autograd.Function):
+    """F.linear(x, bf16(w)) + bf16(b) on a bf16 x: the forward and dx of
+    the plain expression, float32 row sums for dw and db."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        wb = w.to(torch.bfloat16)
+        ctx.save_for_backward(x, wb)
+        return F.linear(x, wb) + b.to(torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wb = ctx.saved_tensors
+        d2 = dy.reshape(-1, dy.shape[-1]).float()
+        return dy.matmul(wb), d2.t() @ x.reshape(-1, x.shape[-1]).float(), d2.sum(0)
 
 
 class MLP(nn.Module):
@@ -30,14 +94,24 @@ class MLP(nn.Module):
         self.hidden = nn.ModuleList(nn.Linear(i, o) for i, o in zip(dims[:-1], dims[1:]))
         self.head = nn.Linear(dims[-1], out_dim)
         for lin, gain in [(l, math.sqrt(2)) for l in self.hidden] + [(self.head, out_gain)]:
-            nn.init.orthogonal_(lin.weight, gain=gain, generator=generator)
+            orthogonal_(lin.weight, gain, generator)
             nn.init.zeros_(lin.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.bfloat16)
         for lin in self.hidden:
-            x = self.act(F.linear(x, lin.weight.to(torch.bfloat16)) + lin.bias.to(torch.bfloat16))
+            if f32_wgrad_on():
+                x = self.act(_LinearBf16.apply(x, lin.weight, lin.bias))
+            else:
+                x = self.act(F.linear(x, lin.weight.to(torch.bfloat16))
+                             + lin.bias.to(torch.bfloat16))
         return self.head(x.to(torch.float32))
+
+    @staticmethod
+    def bf16_mask(module: nn.Module):
+        """Per parameter of `module` (named_parameters order): whether it is
+        a bf16 hidden layer's."""
+        return [".hidden." in f".{n}" for n, _ in module.named_parameters()]
 
 
 class ActorCritic(nn.Module):

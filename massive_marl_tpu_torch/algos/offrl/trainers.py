@@ -25,6 +25,12 @@ IQL) or BCQ's argmax over Q1 of 10 perturbed VAE candidates, obs clipped at
 +-5, envs reset from a generator seeded with seed + 1.  The checkpoint is
 the JAX trainer's file {"params", "step"} (utils/bridge.offline_state_*).
 Random draws go through `_slots` and `_normal`, in the reference's order.
+
+Under a `mesh` (parallel/mesh.py) every rank draws the same batch rows and
+keeps its batch_size / R of them, and its noise is its rows' part of the
+draw over the whole batch; the gradients and the q_loss are averaged over
+the ranks (TD3+BC's lambda from the global mean |Q|), so a step is the
+single-process one.  eval_online splits its envs over the ranks.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from massive_marl_tpu_torch.algos.offrl import datasets
 from massive_marl_tpu_torch.algos.rl.offpolicy import _detached, dense, init_mlp
 from massive_marl_tpu_torch.algos.rl.ppo import AdamState, adam_update
 from massive_marl_tpu_torch.envs.base import env_generator
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw_rows
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -118,9 +125,6 @@ class OfflineTrainer:
                  log_dir: str | None = None, print_log: bool = True, data: dict | None = None,
                  device=None, mesh=None):
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError("multi-device offline training is not ported yet "
-                                      "(ROADMAP A.9)")
         if cfg.algo not in ("td3_bc", "bcq", "iql"):
             raise ValueError(cfg.algo)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -151,8 +155,10 @@ class OfflineTrainer:
             self.obs_std = torch.from_numpy(std).to(self.device)
         self.data = {k: torch.from_numpy(v).to(self.device) for k, v in data.items()}
         self.N = len(data["states"])
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, cfg.batch_size)
         self.latent_dim = 2 * self.act_dim
         self.state: OfflineState | None = None
         self.last_metrics: Dict[str, float] = {}
@@ -192,11 +198,15 @@ class OfflineTrainer:
                              device=self.device)
 
     def _normal(self, shape, generator=None):
-        return torch.randn(shape, generator=generator or self.generator, device=self.device)
+        """N(0, 1) over `shape`, whose leading axis is the batch's rows, or
+        k consecutive entries per row (over the whole batch under a
+        mesh)."""
+        return draw_rows(torch.randn, shape, generator or self.generator, per_row=True,
+                         device=self.device)
 
     # -------------------------------------------------------------- internals
     def _sample(self):
-        idx = self._slots()
+        idx = self._slots()[self.mesh.rows(self.cfg.batch_size)]
         b = {k: v[idx] for k, v in self.data.items()}
         return (b["states"], b["actions"], b["rewards"].squeeze(-1), b["dones"].squeeze(-1),
                 b["next_states"])
@@ -204,8 +214,8 @@ class OfflineTrainer:
     def _adam(self, name: str, loss):
         """One Adam(lr) step of network `name` on `loss`, in place."""
         leaves = tree_leaves(self.state.params[name])
-        adam_update(leaves, list(torch.autograd.grad(loss, leaves)), self.state.opts[name],
-                    self.cfg.lr)
+        adam_update(leaves, self.mesh.mean(list(torch.autograd.grad(loss, leaves))),
+                    self.state.opts[name], self.cfg.lr)
 
     def _polyak(self):
         tau = self.cfg.tau
@@ -240,11 +250,20 @@ class OfflineTrainer:
         if st.step % c.policy_freq == 0:
             pi = torch.tanh(mlp_apply(p["actor"], o))
             q = self._q(_detached(p["q1"]), o, pi)
-            lmbda = c.alpha / (q.abs().mean() + 1e-8)
-            self._adam("actor", -lmbda * q.mean() + torch.mean((pi - a) ** 2))
+            bc = torch.mean((pi - a) ** 2)
+            if self.mesh is LOCAL:
+                lmbda = c.alpha / (q.abs().mean() + 1e-8)
+                self._adam("actor", -lmbda * q.mean() + bc)
+            else:
+                # -alpha Q / (A + 1e-8) of the global means Q, A: the rank's
+                # share of its gradient, linear in its means q, a
+                qm, am = q.mean(), q.abs().mean()
+                Q, A = self.mesh.mean([qm.detach(), am.detach()])
+                A = A + 1e-8
+                self._adam("actor", -c.alpha * (qm / A - Q * am / A ** 2) + bc)
         self._polyak()
         with torch.no_grad():
-            return torch.mean((self._q(p["q1"], o, a) - target) ** 2)
+            return self.mesh.mean(torch.mean((self._q(p["q1"], o, a) - target) ** 2))
 
     def _decode(self, dec_p, obs, z):
         return torch.tanh(mlp_apply(dec_p, obs, torch.clamp(z, -0.5, 0.5)))
@@ -261,7 +280,7 @@ class OfflineTrainer:
         kl = -0.5 * torch.mean(1 + 2 * log_std - mu ** 2 - torch.exp(2 * log_std))
         vae_loss = torch.mean((recon - a) ** 2) + 0.5 * kl
         enc, dec = tree_leaves(p["vae_enc"]), tree_leaves(p["vae_dec"])
-        grads = torch.autograd.grad(vae_loss, enc + dec)
+        grads = self.mesh.mean(list(torch.autograd.grad(vae_loss, enc + dec)))
         adam_update(enc, list(grads[:len(enc)]), st.opts["vae_enc"], c.lr)
         adam_update(dec, list(grads[len(enc):]), st.opts["vae_dec"], c.lr)
         reps = 10
@@ -279,7 +298,7 @@ class OfflineTrainer:
         self._adam("pert", -torch.mean(self._q(_detached(p["q1"]), o, a_p)))
         self._polyak()
         with torch.no_grad():
-            return torch.mean((self._q(p["q1"], o, a) - target) ** 2)
+            return self.mesh.mean(torch.mean((self._q(p["q1"], o, a) - target) ** 2))
 
     def _iql_step(self):
         c, st = self.cfg, self.state
@@ -304,7 +323,7 @@ class OfflineTrainer:
                          - 0.5 * np.log(2 * np.pi), dim=-1)
         self._adam("actor", -torch.mean(weights * logp))
         self._polyak()
-        return loss_v.detach()
+        return self.mesh.mean(loss_v.detach())
 
     def train_step(self):
         """One step of cfg.algo; returns its q_loss (a 0-d tensor)."""
@@ -365,13 +384,14 @@ class OfflineTrainer:
             self.init_state()
         g = torch.Generator(device=self.device)
         g.manual_seed(self.seed + 1)
+        g = self.mesh.shard_generator(g, num_envs)
         total = torch.zeros((), device=self.device)
         with env_generator(env, g):
-            st = env.reset(num_envs)
+            st = env.reset(self.mesh.local(num_envs))
             for _ in range(n_steps):
                 st = env.step_batch(st, self.act(torch.clamp(st.obs, -5.0, 5.0), g))
                 total = total + st.reward.mean()
-        return float(total) / n_steps
+        return float(self.mesh.mean(total)) / n_steps
 
     # ------------------------------------------------------------- checkpoint
     def save(self, path: str):

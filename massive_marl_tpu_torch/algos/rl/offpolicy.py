@@ -27,6 +27,13 @@ kernels, zero biases), held as parameter trees in flax's own layout
 ["q2"], ["alpha": {"log_alpha"}]}), so a checkpoint is the JAX trainer's
 own file.  Random draws go through `_normal` and `_slots`, in the
 reference's order.
+
+Under a `mesh` (parallel/mesh.py) each rank steps its E / R envs and its
+ring holds their E / R columns (JAX's axis-1 sharding of [R, E, ...]).  The
+sampled slots are drawn alike on every rank and each slot carries every
+env, so the ranks hold equal shares of a batch: the Q and pi gradients,
+the Q loss and SAC's mean log-prob are averaged over them.  The noise of a
+batch is drawn over the global rows (parallel/mesh.draw_rows).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch.nn.functional as F
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos.rl.ppo import AdamState, adam_update
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw_rows
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -208,9 +216,6 @@ class OffPolicy:
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, trainer on {self.device}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device off-policy training is not ported yet "
-                                      "(ROADMAP A.9)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.env = env
@@ -226,8 +231,11 @@ class OffPolicy:
         self.n_hidden = self.cfg.hidden_layer
         self.is_sac = self.cfg.algo == "sac"
         self.twin_q = self.cfg.algo in ("sac", "td3")
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         self.state: OffPolicyState | None = None
         self.last_metrics: Dict[str, float] = {}
         # cumulative gradient steps and pi steps taken by this trainer
@@ -256,7 +264,7 @@ class OffPolicy:
                                                                    device=dev))}
         zeros = lambda leaves: AdamState(mu=[torch.zeros_like(p) for p in leaves],
                                          nu=[torch.zeros_like(p) for p in leaves])
-        E, R, bf = self.num_envs, cfg.replay_size, torch.bfloat16
+        E, R, bf = self.local_envs, cfg.replay_size, torch.bfloat16
         replay = Replay(
             obs=torch.zeros((R, E, self.obs_dim), dtype=bf, device=dev),
             actions=torch.zeros((R, E, self.act_dim), dtype=bf, device=dev),
@@ -275,7 +283,9 @@ class OffPolicy:
 
     # ------------------------------------------------------------ random draws
     def _normal(self, shape):
-        return torch.randn(shape, generator=self.generator, device=self.device)
+        """N(0, 1) over `shape`, whose leading axis is one step's envs or a
+        batch's slots x envs (over the global envs under a mesh)."""
+        return draw_rows(torch.randn, shape, self.generator, device=self.device)
 
     def _slots(self, count: int):
         """batch_size time slots drawn uniformly from [0, max(count, 1))."""
@@ -349,8 +359,8 @@ class OffPolicy:
     def _grad_update(self, st: OffPolicyState):
         """One gradient step on a batch sampled from the ring; returns the
         Q loss (a 0-d tensor)."""
-        cfg, rp = self.cfg, st.replay
-        B, E = cfg.batch_size, self.num_envs
+        cfg, rp, mesh = self.cfg, st.replay, self.mesh
+        B, E = cfg.batch_size, self.local_envs
         idx = self._slots(rp.count)
         batch = dict(obs=rp.obs[idx].reshape(B * E, -1).float(),
                      actions=rp.actions[idx].reshape(B * E, -1).float(),
@@ -361,13 +371,17 @@ class OffPolicy:
         q_params = {k: v for k, v in params.items() if k.startswith("q")}
         q_leaves = tree_leaves(q_params)
         qloss = self._q_loss(q_params, params, st.target_params, batch)
-        adam_update(q_leaves, list(torch.autograd.grad(qloss, q_leaves)), st.opt_q, cfg.lr,
-                    cfg.max_grad_norm)
+        *qgrad, qloss = mesh.mean(list(torch.autograd.grad(qloss, q_leaves)) + [qloss.detach()])
+        adam_update(q_leaves, qgrad, st.opt_q, cfg.lr, cfg.max_grad_norm)
         if cfg.algo != "td3" or st.update_count % cfg.policy_delay == 0:
             pi_leaves = tree_leaves(params["pi"])
             ploss, mean_logp = self._pi_loss(params["pi"], params, batch)
-            adam_update(pi_leaves, list(torch.autograd.grad(ploss, pi_leaves)), st.opt_pi,
-                        cfg.lr, cfg.max_grad_norm)
+            pgrad = list(torch.autograd.grad(ploss, pi_leaves))
+            if mean_logp is not None:
+                *pgrad, mean_logp = mesh.mean(pgrad + [mean_logp])
+            else:
+                pgrad = mesh.mean(pgrad)
+            adam_update(pi_leaves, pgrad, st.opt_pi, cfg.lr, cfg.max_grad_norm)
             self.pi_steps += 1
             if self.is_sac and cfg.auto_alpha:
                 target_h = (cfg.target_entropy if cfg.target_entropy is not None
@@ -417,7 +431,8 @@ class OffPolicy:
         n_updates = cfg.noptepochs * cfg.nminibatches if update else 0
         rews, qlosses = zip(*(self._env_step(st, n_updates) for _ in range(cfg.nsteps)))
         st.iteration += 1
-        return dict(mean_reward=torch.stack(rews).mean(), q_loss=torch.stack(qlosses).mean())
+        return dict(mean_reward=self.mesh.mean(torch.stack(rews).mean()),
+                    q_loss=torch.stack(qlosses).mean())
 
     # ---------------------------------------------------------------- driving
     def run(self, num_learning_iterations: int | None = None, log_interval: int = 1):

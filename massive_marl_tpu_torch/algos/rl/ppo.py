@@ -19,6 +19,14 @@ actions, logp, value, mean, reward, done).  With a `log_dir`, `run` logs the
 reference's tags (utils/logging.Writer) and saves `model_<it>.ckpt` every
 `save_interval` iterations; a checkpoint is the JAX trainer's own file
 (utils/bridge.ppo_state_to_flax), so either package restores the other's.
+
+Under a `mesh` (parallel/mesh.py) each rank steps its E / R envs and the
+iteration is the single-process one: GAE is local, the advantages are
+normalised by the global mean and population std, and each rank holds its
+share of every T-major minibatch; its losses are its rows' sums over the
+global minibatch size, and one all-reduce per minibatch sums the gradients,
+the KL and the losses before the global-norm clip.  The logged means are
+global.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos import nets
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 
@@ -143,9 +152,11 @@ def gae(traj, last_value, gamma: float, lam: float) -> torch.Tensor:
     return torch.stack(advs[::-1])
 
 
-def normalized(adv: torch.Tensor) -> torch.Tensor:
-    """The advantages centred and divided by their population std plus 1e-8."""
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+def normalized(adv: torch.Tensor, mesh=LOCAL) -> torch.Tensor:
+    """The advantages centred and divided by their population std plus 1e-8
+    (over every rank's rows under a mesh)."""
+    mean, std = mesh.mean_std(adv)
+    return (adv - mean) / (std + 1e-8)
 
 
 @dataclass
@@ -161,7 +172,7 @@ class PPO:
 
     def __init__(self, env, num_envs: int, cfg: PPOConfig | None = None,
                  seed: int = 0, log_dir: str | None = None, device=None,
-                 print_log: bool = True):
+                 print_log: bool = True, mesh=None):
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, trainer on {self.device}")
@@ -175,8 +186,11 @@ class PPO:
         self.print_log = print_log
         self.act_dim = env.num_actions * env.num_agents
         self.obs_dim = env.num_obs
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         init_gen = torch.Generator()
         init_gen.manual_seed(seed)
         self.model = nets.ActorCritic(
@@ -192,7 +206,7 @@ class PPO:
                         nu=[torch.zeros_like(p) for p in params])
         self.state = PPOTrainState(
             opt=opt, lr=torch.tensor(self.cfg.lr, device=self.device),
-            env_state=self.env.reset(self.num_envs))
+            env_state=self.env.reset(self.local_envs))
         return self.state
 
     # ---------------------------------------------------------------- rollout
@@ -206,7 +220,8 @@ class PPO:
         for _ in range(cfg.nsteps):
             obs = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
             mean, value, log_std = self.model(obs)
-            actions = nets.gaussian_sample(mean, log_std, generator=self.generator)
+            actions = nets.gaussian_sample(mean, log_std, noise=draw(
+                torch.randn, mean.shape, self.generator, device=mean.device, dtype=mean.dtype))
             logp = nets.gaussian_log_prob(mean, log_std, actions)
             env_state = self.env.step_batch(
                 env_state, torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions))
@@ -220,30 +235,40 @@ class PPO:
     def gae(self, traj, last_value):
         """(advantages normalised by their population std, returns)."""
         adv = gae(traj, last_value, self.cfg.gamma, self.cfg.lam)
-        return normalized(adv), adv + traj["value"]
+        return normalized(adv, self.mesh), adv + traj["value"]
 
-    def _loss(self, batch, old_log_std):
+    def _loss(self, batch, old_log_std, n=None):
+        """(loss, surrogate, value loss, kl) of a minibatch: batch means, or
+        with `n` (under a mesh) sums over the rank's rows divided by the
+        global minibatch size n."""
         cfg = self.cfg
+        if n is not None:
+            bmean = lambda x: x.sum() / n
+        else:
+            bmean = torch.mean
         mean, value, log_std = self.model(batch["obs"])
         logp = nets.gaussian_log_prob(mean, log_std, batch["actions"])
         ratio = torch.exp(logp - batch["logp"])
         adv = batch["adv"]
-        surrogate_loss = torch.mean(torch.maximum(
+        surrogate_loss = bmean(torch.maximum(
             -adv * ratio, -adv * torch.clamp(ratio, 1 - cfg.cliprange, 1 + cfg.cliprange)))
         if cfg.use_clipped_value_loss:
             v_clip = batch["value"] + torch.clamp(value - batch["value"],
                                                   -cfg.cliprange, cfg.cliprange)
-            value_loss = torch.mean(torch.maximum((value - batch["returns"]) ** 2,
-                                                  (v_clip - batch["returns"]) ** 2))
+            value_loss = bmean(torch.maximum((value - batch["returns"]) ** 2,
+                                             (v_clip - batch["returns"]) ** 2))
         else:
-            value_loss = torch.mean((batch["returns"] - value) ** 2)
-        entropy = nets.gaussian_entropy(log_std, batch["obs"].shape[:1]).mean()
+            value_loss = bmean((batch["returns"] - value) ** 2)
+        if n is None:
+            entropy = nets.gaussian_entropy(log_std, batch["obs"].shape[:1]).mean()
+        else:   # the rank's share of a batch-independent entropy
+            entropy = nets.gaussian_entropy(log_std) * (batch["obs"].shape[0] / n)
         loss = surrogate_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
         kl = None
         if cfg.schedule == "adaptive":
             with torch.no_grad():
-                kl = nets.gaussian_kl(batch["mean"], old_log_std.expand_as(mean),
-                                      mean, log_std.expand_as(mean)).mean()
+                kl = bmean(nets.gaussian_kl(batch["mean"], old_log_std.expand_as(mean),
+                                            mean, log_std.expand_as(mean)))
         return loss, surrogate_loss.detach(), value_loss.detach(), kl
 
     def _step(self, grads, lr):
@@ -254,10 +279,10 @@ class PPO:
     def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor):
         """GAE and the epochs of minibatch updates on one trajectory; returns
         the iteration's metrics (device tensors)."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         T, E = traj["reward"].shape
         n_mb = cfg.nminibatches
-        mb = (T * E) // n_mb
+        mb = (T * self.num_envs) // n_mb
         with torch.no_grad():
             _, last_value, _ = self.model(torch.clamp(last_obs, -cfg.clip_obs, cfg.clip_obs))
             adv, returns = self.gae(traj, last_value)
@@ -271,9 +296,23 @@ class PPO:
         surr, vals = [], []
         for _ in range(cfg.noptepochs):
             for m in range(n_mb):
-                batch = {k: v[m * mb:(m + 1) * mb] for k, v in flat.items()}
-                loss, s_loss, v_loss, kl = self._loss(batch, old_log_std)
-                grads = list(torch.autograd.grad(loss, params))
+                lo, hi = mesh.span(m * mb, (m + 1) * mb, self.num_envs)
+                batch = {k: v[lo:hi] for k, v in flat.items()}
+                if mesh is LOCAL:
+                    loss, s_loss, v_loss, kl = self._loss(batch, old_log_std)
+                    grads = list(torch.autograd.grad(loss, params))
+                else:
+                    # one collective: the f32 partial sums of the gradients
+                    # (rounded to bf16 after it where a layer is bf16), the
+                    # losses and the kl
+                    with nets.f32_weight_grads():
+                        loss, s_loss, v_loss, kl = self._loss(batch, old_log_std, mb)
+                        grads = list(torch.autograd.grad(loss, params))
+                    n = len(grads)
+                    red = mesh.sum(grads + [s_loss, v_loss] + ([kl] if kl is not None else []))
+                    grads = nets.round_bf16(red[:n], nets.MLP.bf16_mask(self.model))
+                    s_loss, v_loss, *rest = red[n:]
+                    kl = rest[0] if rest else None
                 if kl is not None:
                     lr = torch.where(kl > cfg.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5), lr)
                     lr = torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
@@ -283,11 +322,12 @@ class PPO:
                 vals.append(v_loss)
         self.state.lr = lr
         self.state.iteration += 1
-        return dict(mean_reward=traj["reward"].mean(),
+        reward, done = mesh.mean([traj["reward"].mean(), traj["done"].mean()])
+        return dict(mean_reward=reward,
                     mean_value_loss=torch.stack(vals).mean(),
                     mean_surrogate_loss=torch.stack(surr).mean(),
                     mean_noise_std=nets.dist_std(self.model.log_std.detach()).mean(),
-                    lr=lr, done_frac=traj["done"].mean())
+                    lr=lr, done_frac=done)
 
     def train_iter(self):
         traj = self.rollout_phase()

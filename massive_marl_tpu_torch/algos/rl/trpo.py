@@ -22,9 +22,17 @@ the reference, both take the policy widths (pi_hid_sizes).  With a
 `log_dir`, `run` logs train/mean_reward, train/value_loss and perf/fps and
 saves `model_<it>.ckpt` every `save_interval` iterations, the JAX trainer's
 own file (utils/bridge.trpo_state_to_flax).
+
+Under a `mesh` (parallel/mesh.py) each rank steps its E / R envs; the
+advantages are normalised by the global mean and std, and the gradient,
+every Fisher-vector product and each line-search candidate's surrogate and
+KL are means over the ranks (each holds an equal share of the batch), so
+conjugate gradient and the search decide on the same values on every rank.
+The critic's gradients and loss are averaged the same way.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -38,6 +46,7 @@ from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos import nets
 from massive_marl_tpu_torch.algos.rl.ppo import (AdamState, adam_update, gae, grads_or_zeros,
                                                  normalized)
+from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
 
@@ -116,20 +125,24 @@ def assign(params, vec: torch.Tensor):
         i += p.numel()
 
 
-def natural_gradient_step(params, surrogate, mean_kl, cfg):
+def natural_gradient_step(params, surrogate, mean_kl, cfg, reduce=None):
     """One TRPO step on `params`, in place.  `surrogate()` and `mean_kl()`
     evaluate the current parameters; cfg gives cg_nsteps, damping, max_kl,
     max_num_backtrack and backtrack_coeff.  Parameters neither function
-    reaches get zero gradients.  Returns (old surrogate, accepted, {"fvps":
-    Fisher-vector products, "candidates": line-search candidates})."""
-    g = flat(grads_or_zeros(surrogate(), params))
+    reaches get zero gradients.  `reduce` (a mesh's mean) combines the
+    ranks' gradient, Fisher-vector products and line-search values.
+    Returns (old surrogate, accepted, {"fvps": Fisher-vector products,
+    "candidates": line-search candidates})."""
+    reduce = reduce or (lambda x: x)
+    g = reduce(flat(grads_or_zeros(surrogate(), params)))
     grad_kl = flat(grads_or_zeros(mean_kl(), params, create_graph=True))
     n_fvp = 0
 
     def fvp(v):
         nonlocal n_fvp
         n_fvp += 1
-        return flat(grads_or_zeros(grad_kl @ v, params, retain_graph=True)) + cfg.damping * v
+        return reduce(flat(grads_or_zeros(grad_kl @ v, params, retain_graph=True))) \
+            + cfg.damping * v
 
     x, r, p = torch.zeros_like(g), g, g
     rs = g @ g
@@ -147,12 +160,13 @@ def natural_gradient_step(params, surrogate, mean_kl, cfg):
 
     with torch.no_grad():
         old_flat = flat(params)
-        old_surr = surrogate()
+        old_surr = reduce(surrogate())
         accepted, n_cand = False, 0
         for i in range(cfg.max_num_backtrack):
             n_cand += 1
             assign(params, old_flat + cfg.backtrack_coeff ** i * full_step)
-            if bool((surrogate() - old_surr > 0) & (mean_kl() <= cfg.max_kl * 1.5)):
+            surr, kl = reduce([surrogate(), mean_kl()])
+            if bool((surr - old_surr > 0) & (kl <= cfg.max_kl * 1.5)):
                 accepted = True
                 break
         if not accepted:
@@ -175,9 +189,6 @@ class TRPO:
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, trainer on {self.device}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device TRPO training is not ported yet "
-                                      "(ROADMAP A.9)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.env = env
@@ -187,8 +198,11 @@ class TRPO:
         self.print_log = print_log
         self.act_dim = env.num_actions * env.num_agents
         self.obs_dim = env.num_obs
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.mesh = mesh or LOCAL
+        self.local_envs = self.mesh.shard_env(env, num_envs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.generator = self.mesh.shard_generator(gen, num_envs)
         init_gen = torch.Generator()
         init_gen.manual_seed(seed)
         self.actor = Actor(self.obs_dim, self.act_dim, c.hidden, c.activation,
@@ -204,12 +218,13 @@ class TRPO:
         self.state = TRPOTrainState(
             vf_opt=AdamState(mu=[torch.zeros_like(p) for p in cp],
                              nu=[torch.zeros_like(p) for p in cp]),
-            env_state=self.env.reset(self.num_envs))
+            env_state=self.env.reset(self.local_envs))
         return self.state
 
     def _normal(self, shape):
-        """The action noise of one rollout step."""
-        return torch.randn(shape, generator=self.generator, device=self.device)
+        """The action noise of one rollout step (over the global env axis
+        under a mesh)."""
+        return draw(torch.randn, shape, self.generator, device=self.device)
 
     # ---------------------------------------------------------------- rollout
     @torch.no_grad()
@@ -237,7 +252,7 @@ class TRPO:
     def gae(self, traj, last_value):
         """(advantages normalised by their population std, returns)."""
         adv = gae(traj, last_value, self.cfg.gamma, self.cfg.lam)
-        return normalized(adv), adv + traj["value"]
+        return normalized(adv, self.mesh), adv + traj["value"]
 
     def _policy_step(self, obs, actions, old_logp, old_mean, adv):
         """The natural-gradient step on the actor, in place; returns (old
@@ -255,7 +270,7 @@ class TRPO:
                                     log_std.expand_as(mean)).mean()
 
         old_surr, accepted, self.last_search = natural_gradient_step(
-            list(self.actor.parameters()), surrogate, mean_kl, self.cfg)
+            list(self.actor.parameters()), surrogate, mean_kl, self.cfg, self.mesh.mean)
         return old_surr, torch.tensor(float(accepted), device=self.device)
 
     def _critic_epochs(self, obs, v_old, returns):
@@ -264,12 +279,17 @@ class TRPO:
         cfg = self.cfg
         params = list(self.critic.parameters())
         losses = []
+        mesh = self.mesh
         for _ in range(cfg.vf_epochs):
-            v = self.critic(obs)
-            v_clip = v_old + torch.clamp(v - v_old, -cfg.cliprange, cfg.cliprange)
-            loss = torch.mean(torch.maximum((v - returns) ** 2, (v_clip - returns) ** 2))
-            adam_update(params, list(torch.autograd.grad(loss, params)), self.state.vf_opt,
-                        cfg.vf_lr)
+            with (nets.f32_weight_grads() if mesh is not LOCAL else contextlib.nullcontext()):
+                v = self.critic(obs)
+                v_clip = v_old + torch.clamp(v - v_old, -cfg.cliprange, cfg.cliprange)
+                loss = torch.mean(torch.maximum((v - returns) ** 2, (v_clip - returns) ** 2))
+                grads = list(torch.autograd.grad(loss, params))
+            if mesh is not LOCAL:   # f32 partial sums, rounded to bf16 after the mean
+                *grads, loss = mesh.mean(grads + [loss])
+                grads = nets.round_bf16(grads, nets.MLP.bf16_mask(self.critic))
+            adam_update(params, grads, self.state.vf_opt, cfg.vf_lr)
             losses.append(loss.detach())
         return torch.stack(losses).mean()
 
@@ -288,8 +308,8 @@ class TRPO:
         value_loss = self._critic_epochs(obs, traj["value"].reshape(T * E),
                                          returns.reshape(T * E))
         self.state.iteration += 1
-        return dict(mean_reward=traj["reward"].mean(), surrogate=old_surr, accepted=accepted,
-                    value_loss=value_loss)
+        return dict(mean_reward=self.mesh.mean(traj["reward"].mean()), surrogate=old_surr,
+                    accepted=accepted, value_loss=value_loss)
 
     def train_iter(self):
         traj = self.rollout_phase()

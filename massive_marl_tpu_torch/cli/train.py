@@ -65,6 +65,22 @@ of training and, without --headless, writes viewer_<task>.html;
 --random_actions times the env alone under uniform random actions.  `main`
 returns the trainer (its `last_eval` holds a --test's result), or the
 benchmark's records under --random_actions.
+
+A job of several processes runs the same command in each, with
+MMT_COORDINATOR (host:port), MMT_NUM_PROCESSES and MMT_PROCESS_ID set, as
+the JAX CLI's (parallel/launch.py starts them on one host):
+
+    python -m massive_marl_tpu_torch.parallel.launch --nproc 4 -- \
+        --task TenAnt --algo mappo --num_envs 8 --max_iterations 2 --device cpu
+
+Each process is one rank of a data-parallel mesh (parallel/mesh.py): NCCL
+on cuda:<rank % cards>, gloo on the CPU (or MMT_BACKEND).  --seed -1 is
+drawn on rank 0 and broadcast, only rank 0 writes the logs and
+checkpoints, and --num_envs counts the envs of all ranks, each stepping
+its own E / R: a trainer given the mesh builds only those envs
+(Mesh.shard_env), where the JAX CLI builds the whole state and places it
+(_place_state_global).  The SARL and MARL families run on several
+processes; the others raise, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -123,10 +139,25 @@ def evaluate_sarl(trainer, env, num_envs, n_episodes: int = 32, seed: int = 0):
     return evaluate_episodes(env, E, policy, eval_generator(seed, trainer.device))
 
 
-def process_sarl(args, env, cfg_train, logdir, num_envs):
+def setup_distributed(args):
+    """Join the job when MMT_NUM_PROCESSES > 1 (parallel/mesh.init_distributed
+    on --device) and return its ('data', 'model') mesh; None for one
+    process (the JAX CLI's setup_distributed)."""
+    from massive_marl_tpu_torch.parallel import mesh as meshlib
+    if not meshlib.init_distributed(device=args.device):
+        return None
+    import torch.distributed as dist
+    mesh = meshlib.make_mesh()
+    print(f"[dist] process {dist.get_rank()}/{dist.get_world_size()}: "
+          f"{dist.get_backend()}, data rank {mesh.data_rank} of {mesh.size}", flush=True)
+    return mesh
+
+
+def process_sarl(args, env, cfg_train, logdir, num_envs, mesh=None):
     """The single-agent trainer of --algo, configured from its train YAML
     (as the JAX CLI's process_sarl)."""
-    algo, kw = args.algo, dict(seed=cfg_train["seed"], log_dir=logdir, device=args.device)
+    algo, kw = args.algo, dict(seed=cfg_train["seed"], log_dir=logdir, device=args.device,
+                               mesh=mesh)
     if algo == "ppo":
         from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
         return PPO(env, num_envs, PPOConfig.from_cfg_train(cfg_train), **kw)
@@ -248,7 +279,18 @@ def main(argv=None):
     args = cfg_mod.get_args(argv)
     cfg_mod.set_np_formatting()
     algo = args.algo
+    # several processes: join before load_cfg, so that --seed -1 is drawn
+    # once, on rank 0, and every rank runs the same seed
+    mesh = setup_distributed(args)
+    if mesh is not None:
+        import random
+
+        from massive_marl_tpu_torch.parallel.mesh import broadcast_int
+        args.seed = broadcast_int(args.seed if args.seed >= 0 else random.randint(0, 10000))
     cfg, cfg_train, logdir = cfg_mod.load_cfg(args)
+    run_dir = logdir        # where --model_dir latest looks, on every rank
+    if mesh is not None and mesh.rank != 0:
+        logdir = None       # one writer and checkpointer per job: rank 0
     if args.fused_kernel is not None:
         cfg.setdefault("sim", {})["fused_kernel"] = cfg_mod.FUSED[args.fused_kernel]
     num_envs = cfg["env"]["numEnvs"]
@@ -256,6 +298,11 @@ def main(argv=None):
     if args.random_actions:
         return bench_random_actions(args, cfg, num_envs)
     if algo in cfg_mod.MTRL_ALGOS + cfg_mod.METARL_ALGOS + cfg_mod.OFFRL_ALGOS:
+        if mesh is not None:
+            raise NotImplementedError(
+                f"multi-process CLI launch supports the SARL and MARL families; --algo "
+                f"{algo} runs single-process (its mesh support is exercised in-process, "
+                f"tests/test_torch_distributed_other.py)")
         return process_other(args, cfg, cfg_train, logdir, num_envs)
     if args.task == "OneAnt" and algo in cfg_mod.MARL_ALGOS:
         raise SystemExit(f"OneAnt is a single-agent task: --algo one of {cfg_mod.SARL_ALGOS}")
@@ -268,8 +315,8 @@ def main(argv=None):
     if algo in cfg_mod.MARL_ALGOS:
         env = build_env(args.task, cfg, multi_agent=True, device=args.device, seed=seed)
         runner = process_marl(algo, env, cfg_train, num_envs,
-                              dict(seed=seed, log_dir=logdir, device=args.device))
-        _restore(args, runner.restore, logdir)
+                              dict(seed=seed, log_dir=logdir, device=args.device, mesh=mesh))
+        _restore(args, runner.restore, run_dir)
         if args.test:
             runner.last_eval = runner.eval()
             print("eval mean episode reward:", runner.last_eval)
@@ -286,8 +333,8 @@ def main(argv=None):
         return runner
 
     env = build_env(args.task, cfg, multi_agent=False, device=args.device, seed=seed)
-    trainer = process_sarl(args, env, cfg_train, logdir, num_envs)
-    _restore(args, trainer.load, logdir)
+    trainer = process_sarl(args, env, cfg_train, logdir, num_envs, mesh)
+    _restore(args, trainer.load, run_dir)
     if args.test:
         trainer.last_eval = evaluate_sarl(trainer, env, num_envs)
         print("eval mean reward/step:", trainer.last_eval)

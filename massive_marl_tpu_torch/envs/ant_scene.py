@@ -24,6 +24,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from massive_marl_tpu_torch.parallel.mesh import draw
 from massive_marl_tpu_torch.phys import dr as dr_mod
 from massive_marl_tpu_torch.phys import engine
 from massive_marl_tpu_torch.phys.system import System
@@ -154,7 +155,7 @@ def reset_scene(spec: AntSceneSpec, generator: torch.Generator, num_envs: int,
     sys = spec.ant_sys
     E, A, nj = num_envs, spec.num_ants, sys.nj
     dev = ant_start.device
-    u = torch.rand((2, E, nj), generator=generator, device=dev)
+    u = draw(torch.rand, (2, E, nj), generator, axis=1, device=dev)
     dpos = u[0] * (2 * pos_noise) - pos_noise
     dvel = u[1] * (2 * vel_noise) - vel_noise
     hinge = torch.clamp(init_hinge + dpos, sys.jnt_range[:, 0], sys.jnt_range[:, 1])
@@ -173,7 +174,7 @@ def reset_scene(spec: AntSceneSpec, generator: torch.Generator, num_envs: int,
         dr = dr_mod.sample_dr(sys, spec.dr_spec, (E, A), generator,
                               None if frame is None else frame[:, None])
     if corr_shapes is not None:
-        corr_act, corr_obs = (torch.randn((E,) + tuple(sh), generator=generator, device=dev)
+        corr_act, corr_obs = (draw(torch.randn, (E,) + tuple(sh), generator, device=dev)
                               for sh in corr_shapes)
     return AntSceneState(
         ant_qpos=qpos, ant_qvel=qvel, box_qpos=box_qpos,

@@ -35,6 +35,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from massive_marl_tpu_torch.parallel.mesh import draw
+
 from .system import System
 
 
@@ -100,10 +102,9 @@ def _lead(s, ndim: int):
 
 def _draw(prop: Dict[str, Any], shape, generator: torch.Generator, device) -> torch.Tensor:
     """The standard draw behind a factor: N(0, 1) for a gaussian, U[0, 1)
-    for a uniform distribution."""
-    if prop.get("distribution", "uniform") == "gaussian":
-        return torch.randn(shape, generator=generator, device=device)
-    return torch.rand(shape, generator=generator, device=device)
+    for a uniform distribution; axis 0 of `shape` is the env axis."""
+    fn = torch.randn if prop.get("distribution", "uniform") == "gaussian" else torch.rand
+    return draw(fn, shape, generator, device=device)
 
 
 def _factor(prop: Dict[str, Any], z: torch.Tensor, frame=None) -> torch.Tensor:

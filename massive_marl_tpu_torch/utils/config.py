@@ -97,7 +97,7 @@ def get_args(argv=None):
     args = p.parse_args(argv)
     if args.horovod:
         raise SystemExit("Distributed training with Horovod is not supported; "
-                         "use the jax.sharding mesh (massive_marl_tpu.parallel.mesh).")
+                         "use the data-parallel mesh (massive_marl_tpu_torch.parallel.mesh).")
     if args.checkpoint != "Base":
         raise SystemExit("--checkpoint is not supported on the native path. "
                          "Please use --resume or --model_dir (reference config.py:305-306).")

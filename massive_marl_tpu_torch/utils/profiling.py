@@ -1,0 +1,130 @@
+"""Tracing and timing helpers (twin of massive_marl_tpu/utils/profiling.py).
+
+- `trace(logdir)`: a torch.profiler context (CPU, and CUDA when a card is
+  there) that writes a Chrome trace into logdir on exit;
+- `PhaseTimer`: accumulating per-phase wall-clock splits; a phase given a
+  `sync` tensor on CUDA waits for its device with torch.cuda.synchronize
+  before it stops the clock;
+- `measure_rtt`: the host <-> device round trip of a tiny fetch;
+- `time_scanned`: the per-call device time of a `carry -> carry` step, by
+  CUDA events around n calls (wall clock on the CPU);
+- `assert_finite`: a host-side NaN / Inf check over a nested dict, list or
+  nn.Module state.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from collections import defaultdict
+from typing import Dict
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block; on exit write logdir/trace_<pid>.json (open it in
+    Perfetto or chrome://tracing).  Yields the torch.profiler.profile."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
+
+
+def _wait(sync):
+    if isinstance(sync, torch.Tensor) and sync.is_cuda:
+        torch.cuda.synchronize(sync.device)
+
+
+class PhaseTimer:
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str, sync=None):
+        """Time the block; with `sync` (a tensor the block produces, on
+        CUDA) the clock stops once its device has finished."""
+        t0 = time.perf_counter()
+        yield
+        _wait(sync)
+        self.totals[name] += time.perf_counter() - t0
+        self.counts[name] += 1
+
+    def summary(self) -> str:
+        return " ".join(
+            f"{k}={self.totals[k] / max(self.counts[k], 1) * 1000:.1f}ms"
+            for k in sorted(self.totals))
+
+    def fps(self, name: str, steps_per_call: int) -> float:
+        t = self.totals[name] / max(self.counts[name], 1)
+        return steps_per_call / t if t > 0 else 0.0
+
+
+def measure_rtt(n: int = 10, device=None) -> float:
+    """Seconds for one host <-> device round trip of a tiny fetch on
+    `device` (default: CUDA when there is a card, else the CPU)."""
+    dev = torch.device(device if device is not None else
+                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    x = torch.zeros((), device=dev)
+    float(x + 1.0)
+    t0 = time.perf_counter()
+    for i in range(n):
+        float(x + float(i))
+    return (time.perf_counter() - t0) / n
+
+
+def time_scanned(step_fn, init_carry, n: int = 20, warmup: int = 2) -> float:
+    """Seconds per call of `carry -> carry` step_fn: `warmup` untimed
+    calls, then n calls between two CUDA events when the carry holds a CUDA
+    tensor (the device time, however far the host runs ahead), else
+    between two wall-clock reads."""
+    carry = init_carry
+    for _ in range(warmup):
+        carry = step_fn(carry)
+    leaves = carry if isinstance(carry, (list, tuple)) else \
+        list(carry.values()) if isinstance(carry, dict) else [carry]
+    dev = next((x.device for x in leaves if isinstance(x, torch.Tensor) and x.is_cuda), None)
+    if dev is None:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            carry = step_fn(carry)
+        return (time.perf_counter() - t0) / n
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(n):
+        carry = step_fn(carry)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1000.0 / n
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, torch.nn.Module):
+        tree = tree.state_dict()
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def assert_finite(tree, name: str = "tree"):
+    """Raise FloatingPointError naming the first leaf (a tensor or array in
+    a nested dict / list / tuple, or an nn.Module's state) that holds a
+    NaN or an Inf (a debug tool: it reads every leaf on the host)."""
+    for path, leaf in _leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            ok = bool(torch.isfinite(leaf).all()) if leaf.is_floating_point() else True
+        else:
+            import numpy as np
+            ok = bool(np.isfinite(np.asarray(leaf, dtype=np.float64)).all())
+        if not ok:
+            raise FloatingPointError(f"non-finite values in {name}{path}")

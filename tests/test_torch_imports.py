@@ -64,7 +64,14 @@ def test_scan_sees_the_whole_port():
                  "massive_marl_tpu_torch/algos/offrl/__init__.py",
                  "massive_marl_tpu_torch/algos/offrl/collect.py",
                  "massive_marl_tpu_torch/algos/offrl/datasets.py",
-                 "massive_marl_tpu_torch/algos/offrl/trainers.py"):
+                 "massive_marl_tpu_torch/algos/offrl/trainers.py",
+                 "massive_marl_tpu_torch/parallel/__init__.py",
+                 "massive_marl_tpu_torch/parallel/mesh.py",
+                 "massive_marl_tpu_torch/parallel/launch.py",
+                 "massive_marl_tpu_torch/utils/profiling.py",
+                 "massive_marl_tpu_torch/utils/logger/__init__.py",
+                 "massive_marl_tpu_torch/utils/logger/tools.py",
+                 "massive_marl_tpu_torch/utils/logger/plotter.py"):
         assert must in names
     tree = ast.parse("import jax.numpy as jnp\nfrom massive_marl_tpu.phys import mjcf\n"
                      "import importlib\nimportlib.import_module('flax')\nimport msgpack\n")

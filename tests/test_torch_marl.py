@@ -457,8 +457,15 @@ def test_fused_path_choice_and_unported_parts(envs):
     cfg = PConfig.from_cfg_train({}, "hatrpo")
     assert (cfg.kl_threshold, cfg.ls_step, cfg.accept_ratio, cfg.ppo_epoch, cfg.hidden_size) \
         == (0.016, 10, 0.5, 5, 512)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        PRunner(penv, 2, PConfig(), device="cpu", mesh=object())
+    # a mesh is taken; one of two data ranks without torch.distributed holds
+    # one env and raises at its first collective
+    from massive_marl_tpu_torch.parallel.mesh import make_mesh
+    two = PRunner(PTenAnt(ENV_CFG, device="cpu"), 2, PConfig(), device="cpu",
+                  mesh=make_mesh(2), print_log=False)
+    assert two.local_envs == 1
+    two.init_state()
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        two.train_iter()
     with pytest.raises(ValueError, match="update_schedule"):
         mk(update_schedule="joint")
 
