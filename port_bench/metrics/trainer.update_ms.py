@@ -1,0 +1,9 @@
+"""Mean host-clock time of the trainer's update phase (GAE and every
+minibatch step) per window iteration, each span ended by the device's
+sync."""
+import statistics
+
+
+def read(r):
+    t = r.spans.get("trainer.update")
+    return 1e3 * statistics.fmean(t) if t else None
