@@ -27,6 +27,10 @@ share of every T-major minibatch; its losses are its rows' sums over the
 global minibatch size, and one all-reduce per minibatch sums the gradients,
 the KL and the losses before the global-norm clip.  The logged means are
 global.
+
+The rollout, its policy steps, the update and each minibatch step's
+forward, backward and optimizer are spans of utils/profiling (recorded
+only while its recorder is on).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from massive_marl_tpu_torch.algos import nets
 from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
+from massive_marl_tpu_torch.utils.profiling import span, spanned
 
 
 @dataclass
@@ -210,6 +215,7 @@ class PPO:
         return self.state
 
     # ---------------------------------------------------------------- rollout
+    @spanned("trainer.rollout")
     @torch.no_grad()
     def rollout_phase(self) -> Dict[str, torch.Tensor]:
         """nsteps of policy + env; advances state.env_state and returns the
@@ -218,13 +224,15 @@ class PPO:
         env_state = self.state.env_state
         steps = []
         for _ in range(cfg.nsteps):
-            obs = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
-            mean, value, log_std = self.model(obs)
-            actions = nets.gaussian_sample(mean, log_std, noise=draw(
-                torch.randn, mean.shape, self.generator, device=mean.device, dtype=mean.dtype))
-            logp = nets.gaussian_log_prob(mean, log_std, actions)
-            env_state = self.env.step_batch(
-                env_state, torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions))
+            with span("trainer.policy"):
+                obs = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
+                mean, value, log_std = self.model(obs)
+                actions = nets.gaussian_sample(mean, log_std, noise=draw(
+                    torch.randn, mean.shape, self.generator, device=mean.device,
+                    dtype=mean.dtype))
+                logp = nets.gaussian_log_prob(mean, log_std, actions)
+                clipped = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
+            env_state = self.env.step_batch(env_state, clipped)
             steps.append(dict(obs=obs, actions=actions, logp=logp, value=value, mean=mean,
                               reward=env_state.reward,
                               done=env_state.done.to(torch.float32)))
@@ -276,6 +284,7 @@ class PPO:
         adam_update(list(self.model.parameters()), grads, self.state.opt, lr,
                     self.cfg.max_grad_norm)
 
+    @spanned("trainer.update")
     def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor):
         """GAE and the epochs of minibatch updates on one trajectory; returns
         the iteration's metrics (device tensors)."""
@@ -299,25 +308,32 @@ class PPO:
                 lo, hi = mesh.span(m * mb, (m + 1) * mb, self.num_envs)
                 batch = {k: v[lo:hi] for k, v in flat.items()}
                 if mesh is LOCAL:
-                    loss, s_loss, v_loss, kl = self._loss(batch, old_log_std)
-                    grads = list(torch.autograd.grad(loss, params))
+                    with span("update.forward"):
+                        loss, s_loss, v_loss, kl = self._loss(batch, old_log_std)
+                    with span("update.backward"):
+                        grads = list(torch.autograd.grad(loss, params))
                 else:
                     # one collective: the f32 partial sums of the gradients
                     # (rounded to bf16 after it where a layer is bf16), the
                     # losses and the kl
                     with nets.f32_weight_grads():
-                        loss, s_loss, v_loss, kl = self._loss(batch, old_log_std, mb)
-                        grads = list(torch.autograd.grad(loss, params))
-                    n = len(grads)
-                    red = mesh.sum(grads + [s_loss, v_loss] + ([kl] if kl is not None else []))
-                    grads = nets.round_bf16(red[:n], nets.MLP.bf16_mask(self.model))
+                        with span("update.forward"):
+                            loss, s_loss, v_loss, kl = self._loss(batch, old_log_std, mb)
+                        with span("update.backward"):
+                            grads = list(torch.autograd.grad(loss, params))
+                            n = len(grads)
+                            red = mesh.sum(grads + [s_loss, v_loss]
+                                           + ([kl] if kl is not None else []))
+                            grads = nets.round_bf16(red[:n], nets.MLP.bf16_mask(self.model))
                     s_loss, v_loss, *rest = red[n:]
                     kl = rest[0] if rest else None
-                if kl is not None:
-                    lr = torch.where(kl > cfg.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5), lr)
-                    lr = torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
-                                     torch.clamp(lr * 1.5, max=1e-2), lr)
-                self._step(grads, lr)
+                with span("update.optimizer"):
+                    if kl is not None:
+                        lr = torch.where(kl > cfg.desired_kl * 2.0,
+                                         torch.clamp(lr / 1.5, min=1e-5), lr)
+                        lr = torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
+                                         torch.clamp(lr * 1.5, max=1e-2), lr)
+                    self._step(grads, lr)
                 surr.append(s_loss)
                 vals.append(v_loss)
         self.state.lr = lr

@@ -28,6 +28,7 @@ from massive_marl_tpu_torch.parallel.mesh import draw
 from massive_marl_tpu_torch.phys import dr as dr_mod
 from massive_marl_tpu_torch.phys import engine
 from massive_marl_tpu_torch.phys.system import System
+from massive_marl_tpu_torch.utils.profiling import spanned
 
 
 @dataclasses.dataclass
@@ -68,6 +69,7 @@ class AntSceneSpec(NamedTuple):
     limit_damp: Optional[float] = None     # None = engine.LIMIT_DAMP
 
 
+@spanned("env.box_substep")
 def box_substep(spec: AntSceneSpec, bq, bv, wrench_sum, h):
     """One free-body substep of the push-box for every env ([E,7], [E,6]),
     with the summed ant contact wrench about the box origin folded in."""

@@ -15,6 +15,7 @@ from typing import Any, Callable
 import torch
 
 from massive_marl_tpu_torch.phys import dr
+from massive_marl_tpu_torch.utils.profiling import spanned
 
 
 @dataclasses.dataclass
@@ -27,6 +28,7 @@ class EnvState:
     reward: torch.Tensor     # [E] float32 (shared by all agents of an env)
 
 
+@spanned("env.finish_step")
 def finish_step(env, stepped, actions: torch.Tensor, state: EnvState) -> EnvState:
     """What follows the physics in an ant task's step: blow-up containment
     (a non-finite env resets), the auto-reset overwrite, obs, reward, then

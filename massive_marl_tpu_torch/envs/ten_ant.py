@@ -40,6 +40,7 @@ from massive_marl_tpu_torch.envs.base import EnvState, configure_dr, dr_reset, f
 from massive_marl_tpu_torch.ops import fused_substep
 from massive_marl_tpu_torch.phys import mjcf
 from massive_marl_tpu_torch.phys.engine import ContactParams
+from massive_marl_tpu_torch.utils.profiling import spanned
 
 GOAL_OFFSETS = np.array([1.5, -1.5, 4.5, -4.5, 7.5, -7.5, 10.5, -10.5, 13.5, -13.5], np.float32)
 SPAWN_Y = np.array([-1.5, 1.5, -4.5, 4.5, -7.5, 7.5, -10.5, 10.5, -13.5, 13.5], np.float32)
@@ -147,6 +148,7 @@ class TenAntEnv:
                         done=torch.zeros(num_envs, dtype=torch.bool, device=self.device),
                         obs=obs, reward=torch.zeros(num_envs, device=self.device))
 
+    @spanned("env.step")
     def step_batch(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         """actions [E,80] (joint-action layout) -> the next EnvState."""
         actions = actions.reshape(actions.shape[0], 10, 8)

@@ -35,6 +35,7 @@ import torch
 from massive_marl_tpu_torch.envs.ant_scene import box_substep
 from massive_marl_tpu_torch.ops import _build
 from massive_marl_tpu_torch.ops import scalar_phys as sp
+from massive_marl_tpu_torch.utils.profiling import spanned
 
 NQ, NV, NU = sp.NQ, sp.NV, sp.NJ
 # the DR operand's fields, in order (massive_marl_tpu's _dr_field_layout)
@@ -259,6 +260,7 @@ def substep_plain(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel
             torch.stack([x for s in sens for x in s]))
 
 
+@spanned("env.substep")
 def substep_soa(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel, dr=None):
     """One substep on [field, B] operands (dr: the [41, B] DR operand or
     None): the kernel for CUDA tensors, the plain version for CPU tensors."""
@@ -307,6 +309,7 @@ def scene_consts(spec) -> sp.AntConsts:
     return sp.bake_consts(spec.ant_sys, params)
 
 
+@spanned("env.physics")
 def fused_scene_step(spec, state, actions: torch.Tensor, consts: sp.AntConsts | None = None):
     """Advance one control step for a batch of envs.
 

@@ -1,10 +1,18 @@
 """Tracing and timing helpers (twin of massive_marl_tpu/utils/profiling.py).
 
 - `trace(logdir)`: a torch.profiler context (CPU, and CUDA when a card is
-  there) that writes a Chrome trace into logdir on exit;
+  there) that writes a Chrome trace into logdir on exit, with the
+  program's spans recorded in it;
 - `PhaseTimer`: accumulating per-phase wall-clock splits; a phase given a
   `sync` tensor on CUDA waits for its device with torch.cuda.synchronize
   before it stops the clock;
+- `span(name)` / `spanned(name)`: the program's spans at its layer
+  boundaries (the trainer's rollout, policy and update steps, the env step,
+  its physics, substeps, box substep and finish_step), recorded by one
+  process-wide `SpanRecorder` while `enable()` has turned it on: calls,
+  total and self seconds per name (`totals()`), and, while torch.profiler
+  records, a `record_function` range named PREFIX + name on the trace's
+  clock.  Off (the default) a span is one shared no-op object;
 - `measure_rtt`: the host <-> device round trip of a tiny fetch;
 - `time_scanned`: the per-call device time of a `carry -> carry` step, by
   CUDA events around n calls (wall clock on the CPU);
@@ -14,10 +22,12 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
+import threading
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -29,8 +39,12 @@ def trace(logdir: str):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
+    was_on, RECORDER.on = RECORDER.on, True
+    try:
+        with profile(activities=acts) as prof:
+            yield prof
+    finally:
+        RECORDER.on = was_on
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
 
 
@@ -62,6 +76,129 @@ class PhaseTimer:
     def fps(self, name: str, steps_per_call: int) -> float:
         t = self.totals[name] / max(self.counts[name], 1)
         return steps_per_call / t if t > 0 else 0.0
+
+
+PREFIX = "mmt."     # the profiler's name of span s is PREFIX + s
+
+
+class _Off:
+    """The span of a recorder that is off: enters and leaves doing nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class SpanRecorder(PhaseTimer):
+    """Host-clock spans that nest: per name, `counts` calls and `totals`
+    seconds as a PhaseTimer keeps them (so `summary()` prints the mean per
+    call), and `self_totals`, each span's duration less its direct
+    children's.  Each thread keeps its own stack of open spans.  A span
+    times the host's work: CUDA launches return before the device runs
+    them."""
+
+    def __init__(self):
+        super().__init__()
+        self.on = False
+        self.self_totals: Dict[str, float] = defaultdict(float)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _add(self, name: str, total_ns: int, self_ns: int):
+        with self._lock:
+            self.counts[name] += 1
+            self.totals[name] += total_ns * 1e-9
+            self.self_totals[name] += self_ns * 1e-9
+
+    def reset(self):
+        with self._lock:
+            self.counts.clear()
+            self.totals.clear()
+            self.self_totals.clear()
+
+
+class _Span:
+    """One recorded span: perf_counter_ns at entry and exit, around the
+    profiler's record_function range where torch.profiler records (so the
+    recorded interval holds the profiler's)."""
+    __slots__ = ("rec", "name", "t0", "child_ns", "rf")
+
+    def __init__(self, rec: SpanRecorder, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        self.rec._stack().append(self)
+        self.child_ns, self.rf = 0, None
+        self.t0 = time.perf_counter_ns()
+        if torch._C._autograd._profiler_enabled():
+            self.rf = torch.autograd.profiler.record_function(PREFIX + self.name)
+            self.rf.__enter__()
+        return None
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        dur = time.perf_counter_ns() - self.t0
+        stack = self.rec._stack()
+        stack.pop()
+        if stack:
+            stack[-1].child_ns += dur
+        self.rec._add(self.name, dur, dur - self.child_ns)
+        return False
+
+
+RECORDER = SpanRecorder()   # the process's one recorder, which every span reports to
+
+
+def span(name: str):
+    """A context manager around one layer's work, recorded under `name`
+    while the recorder is on; off, the one shared no-op object."""
+    return _Span(RECORDER, name) if RECORDER.on else _OFF
+
+
+def spanned(name: str):
+    """Decorator: every call of the function in span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned_fn(*args, **kw):
+            if not RECORDER.on:
+                return fn(*args, **kw)
+            with _Span(RECORDER, name):
+                return fn(*args, **kw)
+        return spanned_fn
+    return wrap
+
+
+def enable():
+    RECORDER.on = True
+
+
+def disable():
+    RECORDER.on = False
+
+
+def reset():
+    """Forget every recorded span (the on/off state stays)."""
+    RECORDER.reset()
+
+
+def totals() -> Dict[str, Tuple[int, float, float]]:
+    """{name: (calls, total seconds, self seconds)} of the recorded spans."""
+    rec = RECORDER
+    with rec._lock:
+        return {k: (rec.counts[k], rec.totals[k], rec.self_totals[k]) for k in rec.counts}
 
 
 def measure_rtt(n: int = 10, device=None) -> float:
