@@ -33,6 +33,14 @@ Phases; any failure raises and the script exits non-zero:
   3e. one TenAnt control step of E=4096 envs with one DrSample through
      fused_scene_step (B1-DR) and the array engine's scene_step, from fresh
      resets, held at the control-step tolerances;
+  3f. the push-box kernel (box_body_step, which replaces no TPU kernel)
+     against the plain envs/ant_scene.box_substep at E=4096 over five
+     families of box states (at rest on a face, sliding, tilted on an edge,
+     airborne, pressed past the depenetration cap), each with no ant
+     wrench and with a large random one, on TenAnt under the scene's
+     default contact and cfg/TenAnt.yaml's and on OneAnt: bit for bit; its
+     time on TenAnt (CUDA events, median of 30 launches) beside its bound
+     and the plain version's time;
   4. hold B2/B3 against their plain versions at the MARL update's three
      layer shapes (actor layer 0 128->512, hidden 512->512, critic layer 0
      512->512 with the share obs read by every agent), B = 32,768 rows, for
@@ -56,8 +64,8 @@ Phases; any failure raises and the script exits non-zero:
      5 epochs x 4 minibatches): 1 warm-up iteration through PPO.run and 3
      timed iterations through PPO.rollout_phase / update_phase;
      env-steps/s, rollout ms, update ms; finite losses and observations;
-     exactly 24 B1 launches (8 steps x 3 substeps) per iteration, counted
-     from 0 just before this phase;
+     exactly 24 B1 launches (8 steps x 3 substeps) and 24 box kernel
+     launches per iteration, counted from 0 just before this phase;
   5b. TenAnt + PPO at full width on the array engine (sim.fused_kernel
      false): 1 warm-up iteration through PPO.run and 1 timed; finite
      metrics and no B1 launch; then one TenAnt step_batch with
@@ -386,8 +394,10 @@ def fmt_bound(bound_ms, by) -> str:
 
 
 def count_ops(fn, *args) -> int:
-    """Elementwise operations of fn(*args) (a plain version, branch-free, so
-    every input needs the same count) on the CPU."""
+    """Operations of fn(*args) (a plain version, branch-free, so every input
+    needs the same count) on the CPU: one per element of an elementwise
+    operation, n - 1 additions per output of a sum of n, three per component
+    of a cross product, 2n per norm of n."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -396,13 +406,122 @@ def count_ops(fn, *args) -> int:
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
-            if func.overloadpacket.__name__ in ARITH_OPS and isinstance(out, torch.Tensor):
-                Counter.n += out.numel()
+            name = func.overloadpacket.__name__
+            if isinstance(out, torch.Tensor):
+                if name in ARITH_OPS:
+                    Counter.n += out.numel()
+                elif name == "sum":
+                    Counter.n += args[0].numel() - out.numel()
+                elif name == "linalg_cross":
+                    Counter.n += 3 * out.numel()
+                elif name == "linalg_vector_norm":
+                    Counter.n += 2 * args[0].numel()
             return out
 
     with Counter():
         fn(*args)
     return Counter.n
+
+
+BOX_FAMILIES = ("rest", "sliding", "edge", "airborne", "deep")
+
+
+def box_states(family, n_env, seed):
+    """[E, 7], [E, 6] push-box states of one family (the 1 x 28 x 1 box, its
+    corners of radius 0)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g)
+    yaw = (u(n_env) * 2 - 1) * 3.14159
+    z0 = torch.zeros(n_env)
+    quat = torch.stack([z0, z0, torch.sin(yaw / 2), torch.cos(yaw / 2)], 1)
+    pos = torch.stack([u(n_env) * 8 - 4, u(n_env) * 8 - 4, torch.full((n_env,), 0.5)], 1)
+    vel = (u(n_env, 6) * 2 - 1) * 0.05
+    if family == "rest":
+        pos[:, 2] = 0.5 - 0.002 * u(n_env)
+    elif family == "sliding":
+        pos[:, 2] = 0.499
+        vel[:, 0:2] = (u(n_env, 2) * 2 - 1) * 3.0
+    elif family == "edge":   # the yaw, then a tilt about the long axis: on one edge
+        tilt = 0.2 + 0.4 * u(n_env)
+        st, ct, sy, cy = (f(x / 2) for x in (tilt, yaw) for f in (torch.sin, torch.cos))
+        quat = torch.stack([-sy * st, cy * st, sy * ct, cy * ct], 1)
+        pos[:, 2] = 0.5 * torch.cos(tilt) + 0.5 * torch.sin(tilt) - 0.003 * u(n_env)
+        vel[:, 3:6] = (u(n_env, 3) * 2 - 1) * 2.0
+    elif family == "airborne":
+        pos[:, 2] = 2.0 + 3 * u(n_env)
+        quat = torch.nn.functional.normalize(torch.randn(n_env, 4, generator=g), dim=1)
+        vel = (u(n_env, 6) * 2 - 1) * torch.tensor([5.0, 5.0, 5.0, 70.0, 70.0, 70.0])
+    elif family == "deep":
+        pos[:, 2] = 0.2 + 0.15 * u(n_env)
+        vel[:, 2] = -2.0 * u(n_env)
+    return torch.cat([pos, quat], 1), vel
+
+
+def box_ops_per_env(env) -> float:
+    """Operations of one push-box substep per env, the ants' wrench sum
+    included, counted from the plain version on the CPU."""
+    import torch
+    from massive_marl_tpu_torch.envs.ant_scene import box_substep
+    spec = env.spec._replace(box_sys=env.spec.box_sys.to("cpu"))
+    bq, bv = box_states("rest", 1, 0)
+    h = spec.dt / spec.substeps
+    return count_ops(lambda w: box_substep(spec, bq, bv, w.reshape(6, 1, A).sum(-1).t(), h),
+                     torch.zeros(6, A))
+
+
+def box_kernel_phase(fs, root, dev):
+    """Phase 3f: the push-box kernel against the plain box_substep at E over
+    BOX_FAMILIES, no ant wrench and a large one, on TenAnt under the scene's
+    default contact and cfg/TenAnt.yaml's and on OneAnt, bit for bit; its
+    time, bound and plain time on TenAnt.  Returns its row: worst error (0,
+    or it raises), ms, plain ms, bound ms, bound by."""
+    import torch
+    from massive_marl_tpu_torch.envs.ant_scene import box_substep
+    from massive_marl_tpu_torch.envs.one_ant import OneAntEnv
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    from massive_marl_tpu_torch.utils import yaml_lite
+    env = TenAntEnv(device=dev, seed=0)
+    yaml_env = TenAntEnv(yaml_lite.load(os.path.join(root, "cfg", "TenAnt.yaml")), device=dev)
+    h = env.spec.dt / env.spec.substeps
+    g = torch.Generator().manual_seed(7)
+    big = torch.tensor([2000.0] * 3 + [500.0] * 3)[:, None]
+    print(f"push-box kernel vs plain box_substep at E={E}:")
+    for label, spec in (("TenAnt, default contact", env.spec),
+                        ("TenAnt, cfg/TenAnt.yaml", yaml_env.spec),
+                        ("OneAnt, default contact", OneAntEnv(device=dev, seed=0).spec)):
+        n = spec.num_ants
+        for k, family in enumerate(BOX_FAMILIES):
+            bq, bv = (x.to(dev) for x in box_states(family, E, 10 + k))
+            for wrench in (torch.zeros(6, E * n), torch.randn(6, E * n, generator=g) * big):
+                wrench = wrench.to(dev)
+                got = fs.box_substep_kernel(spec, bq, bv, wrench, h)
+                want = box_substep(spec, bq, bv, wrench.reshape(6, E, n).sum(-1).t(), h)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                    raise AssertionError(f"box kernel differs from plain: {label}, {family}, "
+                                         f"max abs error {err}")
+        print(f"  {label}: bit-identical over {2 * len(BOX_FAMILIES)} cases "
+              f"({', '.join(BOX_FAMILIES)}; no ant wrench and a large one)")
+    bq, bv = (x.to(dev) for x in box_states("rest", E, 10))
+    wrench = torch.randn(6, E * A, generator=g).to(dev)
+    kernel_ms = time_cuda_ms(lambda: fs.box_substep_kernel(env.spec, bq, bv, wrench, h),
+                             KERNEL_REPS)
+    plain_ms = time_cuda_ms(lambda: box_substep(env.spec, bq, bv,
+                                                wrench.reshape(6, E, A).sum(-1).t(), h),
+                            PLAIN_REPS, warmup=1)
+    table = fs.box_substep_kernel.table(env.spec, h, dev)
+    bytes_moved = 4 * (6 * E * A + 2 * E * (7 + 6) + table.numel())
+    per_env = box_ops_per_env(env)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = per_env * E / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    print(f"  kernel {kernel_ms:.4f} ms (median of {KERNEL_REPS}), plain {plain_ms:.2f} ms "
+          f"(median of {PLAIN_REPS}); {fmt_bound(bound_ms, bound_by)}: "
+          f"{bytes_moved / 1e6:.3f} MB -> {bytes_ms:.5f} ms, "
+          f"{per_env:.0f} ops/env x {E} -> {ops_ms:.5f} ms")
+    return {"err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms, "bound": bound_ms,
+            "by": bound_by}
 
 
 def legacy_phase(fs, env, dev):
@@ -1930,6 +2049,7 @@ def timed_iteration(trainer):
 # device kernels grouped by what issues them (names as the profiler reports
 # them; kernel_group takes the first group with a key in the name)
 KERNEL_GROUPS = (("B1 substep kernel", ("substep_kernel",)),
+                 ("box free-body step", ("box_body_step",)),
                  ("B4 mlp_tower fwd", ("tower_fwd_wgmma",)),
                  ("B5 mlp_tower bwd row pass", ("tower_bwd_wgmma",)),
                  ("B2 dense_elu_ln fwd", ("dense_fwd_wgmma",)),
@@ -2668,6 +2788,9 @@ def main() -> int:
     dr_paths_phase(fs, root, dev)
     torch.cuda.empty_cache()
 
+    # ---- 3f. the push-box kernel vs the plain box_substep
+    box_row = box_kernel_phase(fs, root, dev)
+
     # ---- 4. B2/B3 vs plain versions at the MARL update's shapes
     print(f"B2/B3 vs plain at B={MLP_B} rows per agent:")
     mlp_err, mlp_main = mlp_phase(fm, dev)
@@ -2682,18 +2805,21 @@ def main() -> int:
     ppo.init_state()
     torch.cuda.reset_peak_memory_stats()
     fs.substep_kernel.launches = 0
+    fs.box_substep_kernel.launches = 0
     per_iter = ppo.cfg.nsteps * env.spec.substeps
 
-    def check(it, m, n):
+    def check(it, m, n, n_box):
         obs = ppo.state.env_state.obs
         if tuple(obs.shape) != (E, 388) or not torch.isfinite(obs).all():
             raise AssertionError(f"iteration {it}: bad observations {tuple(obs.shape)}")
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"iteration {it}: non-finite metrics {m}")
-        if n != per_iter:
-            raise AssertionError(f"iteration {it}: {n} kernel launches, expected {per_iter}")
+        if n != per_iter or n_box != per_iter:
+            raise AssertionError(f"iteration {it}: {n} B1 and {n_box} box kernel launches, "
+                                 f"expected {per_iter} each")
         print(f"  rew/step {m['mean_reward']:.3f}, vloss {m['mean_value_loss']:.3f}, "
-              f"surr {m['mean_surrogate_loss']:.4f}, lr {m['lr']:.2e}, launches {n}")
+              f"surr {m['mean_surrogate_loss']:.4f}, lr {m['lr']:.2e}, launches {n} B1, "
+              f"{n_box} box")
 
     # warm-up: one iteration through the trainer's own entry point
     torch.cuda.synchronize()
@@ -2701,14 +2827,15 @@ def main() -> int:
     ppo.run(1)
     torch.cuda.synchronize()
     print(f"  it 0 (warm-up, PPO.run): {1e3 * (time.perf_counter() - t0):.1f} ms;", end="")
-    check(0, ppo.last_metrics, fs.substep_kernel.launches)
+    check(0, ppo.last_metrics, fs.substep_kernel.launches, fs.box_substep_kernel.launches)
     rows = []
     for it in range(1, 1 + 3):
-        n0 = fs.substep_kernel.launches
+        n0, nb0 = fs.substep_kernel.launches, fs.box_substep_kernel.launches
         m, roll_s, upd_s = timed_iteration(ppo)
         rows.append((roll_s, upd_s))
         print(f"  it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms;", end="")
-        check(it, m, fs.substep_kernel.launches - n0)
+        check(it, m, fs.substep_kernel.launches - n0, fs.box_substep_kernel.launches - nb0)
+    box_launches = fs.box_substep_kernel.launches
     ppo_launches = fs.substep_kernel.launches
     roll_ms = statistics.median(r for r, _ in rows) * 1e3
     upd_ms = statistics.median(u for _, u in rows) * 1e3
@@ -2837,6 +2964,11 @@ def main() -> int:
                   tower_main),
         mlp_entry("mlp_tower_bwd", "bwd", tower_counts[4], "fused_tower.cu", 288, tower_err,
                   tower_main),
+        {"name": "box_substep", "route": "cuda",
+         "source": "massive_marl_tpu_torch/ops/csrc/substep.cu", "replaces": None,
+         "launches": box_launches, "max_abs_err": box_row["err"], "ms": box_row["ms"],
+         "plain_ms": box_row["plain_ms"], "bound_ms": box_row["bound"],
+         "bound_by": box_row["by"], "library_ms": None},
         {"name": "debug_substep", "route": "cuda",
          "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
          "replaces": "scripts/debug_fused_tpu.py:134",

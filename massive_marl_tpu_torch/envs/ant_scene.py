@@ -6,9 +6,11 @@ never collide with each other; the box's material friction is 0 and pair
 frictions follow `friction_combine`; actions are hinge torques
 action * gear * power_scale.  A control step runs either here on the array
 engine (`scene_step`, the reference's path off the TPU), or on the substep
-kernel (ops/fused_substep.fused_scene_step); both take the push-box's
-free-body substep from `box_substep`.  Joint damping and the joint-limit
-spring and damping integrate implicitly.
+kernel (ops/fused_substep.fused_scene_step).  The push-box's free-body
+substep is `box_substep` on the array engine's path and on the fused path's
+CPU tensors; on the card the fused path launches the box kernel in
+ops/csrc/substep.cu instead, of which `box_substep` is the plain version.
+Joint damping and the joint-limit spring and damping integrate implicitly.
 
 Domain randomization: with `dr_spec` set, state.dr holds a DrSample per ant
 ([E, A, ...] leaves) that overrides mass, damping, armature and the joint

@@ -10,6 +10,23 @@
 //   B6 scripts/debug_fused_tpu.py:134 kernel_fn (B1's body under beta=None,
 //      without the sensor outputs, the box state given per articulation),
 //      launched by debug_substep_launch as <true, false, false>.
+// The same source holds box_body_step (launched by box_substep_launch), the
+// push-box's free-body substep for every env, which replaces no TPU kernel:
+// the JAX package leaves envs/ant_scene.py::box_substep to XLA's fusion, and
+// eager PyTorch made ~493 launches a substep for it.  One thread per env,
+// blocks of 128; the env's ants' wrenches are summed from B1's [6, B] output
+// on the way in.  What bounds it on this card: latency.  It reads ~292 B and
+// writes 52 B an env (1.4 MB at E = 4,096, ~0.4 us at 3.35 TB/s) and runs
+// ~3,000 FP32 operations an env (~12 M, ~0.2 us at 67 TFLOP/s), but each
+// thread runs its env's operations as one dependent chain in 32 blocks, so
+// the launch and that chain set its time (~15 us at E = 4,096; PERF.md).
+// Its cost to the program is the host's launch, once a substep in place of
+// ~493.  It is not fused into B1: an env's ants straddle B1's blocks (16
+// articulations a block), so the per-env sum would need a second pass, and
+// the box steps after all of its env's ants and before the next substep's
+// B1 reads it.  It is compiled for one and for ten ants an env (OneAnt's and
+// TenAnt's scenes).
+//
 // LEGACY selects the reference's explicit spring-damper contact branch
 // (fn = max(kn depth - kd vn, 0), friction ramped over friction_vel), which
 // reads no inverse inertia; SENSORS writes the foot-sensor wrenches.
@@ -970,4 +987,384 @@ extern "C" int substep_blocks_per_sm(int which) {
     default: break;
   }
   return err == cudaSuccess ? n : -(int)err;
+}
+
+// ---- the push-box's free-body substep (box_body_step, one thread per env) ----
+//
+// envs/ant_scene.py::box_substep on the array engine, operation for
+// operation, so it rounds where torch's CUDA kernels round there.  Three of
+// those kernels round in an order of their own (ATen as built in torch 2.11
+// + CUDA 12.8, read on the card):
+//   - a sum over a contiguous last axis of n < 128 elements runs on
+//     min(last_pow2(n), 32) lanes; lane t adds elements t, t + lanes, ...
+//     into four accumulators in turn, then the lanes meet by shuffles at
+//     offsets lanes/2, lanes/4, ..., 1 (torch_lane_sum);
+//   - a sum over an axis that is not the input's fastest adds its elements
+//     into four accumulators in turn (torch_serial_sum);
+//   - torch.linalg.cross computes each component as one fused multiply-add,
+//     fma(a_j, b_k, -(a_k b_j)) (torch_cross).
+// Which sums are which follows the layouts torch gives the products it sums:
+// mm's product with a transposed right operand is summed over its fastest
+// axis, its other products are not.  Every accumulator starts at +0, as
+// there.  Dividing by a Python float is a product with its float reciprocal
+// (the table's hc_inv); 1.0 / x is a correctly rounded reciprocal.
+namespace {
+
+constexpr int BOX_PTS = 8;  // the box's corner points
+// ---- the box table (ops/fused_substep.py::BOX_LAYOUT), floats ----
+constexpr int X_MASS = 0;
+constexpr int X_INV_MASS = X_MASS + 1;
+constexpr int X_COM = X_INV_MASS + 1;
+constexpr int X_INERTIA = X_COM + 3;
+constexpr int X_INERTIA_INV = X_INERTIA + 9;
+constexpr int X_MG = X_INERTIA_INV + 9;
+constexpr int X_H = X_MG + 3;
+constexpr int X_HALF_H = X_H + 1;
+constexpr int X_KN = X_HALF_H + 1;
+constexpr int X_KD = X_KN + 1;
+constexpr int X_KH = X_KD + 1;
+constexpr int X_DEN = X_KH + 1;
+constexpr int X_HC_INV = X_DEN + 1;
+constexpr int X_HC_VEL = X_HC_INV + 1;
+constexpr int X_HC_CAP = X_HC_VEL + 1;
+constexpr int X_ACC_UNITS = X_HC_CAP + 1;
+constexpr int X_MAX_DEPEN_VEL = X_ACC_UNITS + 1;
+constexpr int X_MAX_LIN_VEL = X_MAX_DEPEN_VEL + 1;
+constexpr int X_MAX_ANG_VEL = X_MAX_LIN_VEL + 1;
+constexpr int X_POINT_LOCAL = X_MAX_ANG_VEL + 1;
+constexpr int X_RADIUS = X_POINT_LOCAL + BOX_PTS * 3;
+constexpr int X_MU = X_RADIUS + BOX_PTS;
+constexpr int BOX_TABLE_LEN = X_MU + BOX_PTS;
+
+// the ants per env it is compiled for, as the scenes with the box have them:
+// OneAnt's and TenAnt's (box_substep_launch dispatches)
+constexpr int BOX_ANTS_ONE = 1, BOX_ANTS_TEN = 10;
+constexpr int BOX_THREADS = 128;
+
+__host__ __device__ constexpr int last_pow2(int n) { return n < 2 ? 1 : 2 * last_pow2(n / 2); }
+
+// every index below is a compile-time constant once N is, so the sums'
+// operands stay in registers
+template <int N, typename Get>
+__device__ __forceinline__ float torch_lane_sum(Get x) {
+  static_assert(N >= 1 && N < 128, "torch vectorizes a longer sum: another order");
+  constexpr int LANES = last_pow2(N) < 32 ? last_pow2(N) : 32;
+  float lane[LANES];
+#pragma unroll
+  for (int t = 0; t < LANES; ++t) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int idx = t;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {   // the four-accumulator rounds (at most N)
+      if (idx + 3 * LANES >= N) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = acc[i] + x(idx + i * LANES);
+      idx += 4 * LANES;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (idx < N) acc[i] = acc[i] + x(idx);
+      idx += LANES;
+    }
+    lane[t] = ((acc[0] + acc[1]) + acc[2]) + acc[3];
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int t = 0; t < off; ++t) lane[t] = lane[t] + lane[t + off];
+  return lane[0];
+}
+
+template <int N, typename Get>
+__device__ __forceinline__ float torch_serial_sum(Get x) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < N; ++k) acc[k % 4] = acc[k % 4] + x(k);
+  return ((acc[0] + acc[1]) + acc[2]) + acc[3];
+}
+
+__device__ __forceinline__ V3 torch_cross(V3 a, V3 b) {
+  return v3(__fmaf_rn(a.y, b.z, -(a.z * b.y)), __fmaf_rn(a.z, b.x, -(a.x * b.z)),
+            __fmaf_rn(a.x, b.y, -(a.y * b.x)));
+}
+__device__ __forceinline__ float lsum3(float a, float b, float c) {
+  const float v[3] = {a, b, c};
+  return torch_lane_sum<3>([&](int k) { return v[k]; });
+}
+// engine.mv(M, v): a sum over the product's last axis
+__device__ __forceinline__ V3 torch_mv(const M33& m, V3 v) {
+  return v3(lsum3(m.m[0][0] * v.x, m.m[0][1] * v.y, m.m[0][2] * v.z),
+            lsum3(m.m[1][0] * v.x, m.m[1][1] * v.y, m.m[1][2] * v.z),
+            lsum3(m.m[2][0] * v.x, m.m[2][1] * v.y, m.m[2][2] * v.z));
+}
+// engine.mm(mm(R, K), R^T) with K row-major from the table
+__device__ __forceinline__ M33 torch_rotate_tensor(const M33& R, const float* K) {
+  M33 RK, out;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float v[3] = {R.m[i][0] * K[j], R.m[i][1] * K[3 + j], R.m[i][2] * K[6 + j]};
+      RK.m[i][j] = torch_serial_sum<3>([&](int k) { return v[k]; });
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      out.m[i][j] = lsum3(RK.m[i][0] * R.m[j][0], RK.m[i][1] * R.m[j][1], RK.m[i][2] * R.m[j][2]);
+  return out;
+}
+// engine.inv_mass_along: 1/m + (r x d) . (I^-1 (r x d))
+__device__ __forceinline__ float inv_mass_along(const M33& Iinv, float inv_m, V3 r, V3 d) {
+  const V3 rxd = torch_cross(r, d);
+  const V3 s = torch_mv(Iinv, rxd);
+  return inv_m + lsum3(rxd.x * s.x, rxd.y * s.y, rxd.z * s.z);
+}
+__device__ __forceinline__ float lsum6(const float* v) {
+  return torch_lane_sum<6>([&](int k) { return v[k]; });
+}
+
+template <int ANTS>
+__global__ void __launch_bounds__(BOX_THREADS)
+box_body_step(const float* __restrict__ T, int E, const float* __restrict__ wrench,
+              const float* __restrict__ qpos, const float* __restrict__ qvel,
+              float* __restrict__ qpos_out, float* __restrict__ qvel_out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const long long B = (long long)E * ANTS;
+  // the env's ants' wrenches on the box: wrench.reshape(6, E, ANTS).sum(-1)
+  float wsum[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const float* w = wrench + c * B + (long long)e * ANTS;
+    wsum[c] = torch_lane_sum<ANTS>([&](int a) { return w[a]; });
+  }
+  float q[7], qd[6];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) q[k] = qpos[(long long)e * 7 + k];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) qd[k] = qvel[(long long)e * 6 + k];
+  const float h = T[X_H], mass = T[X_MASS], inv_m = T[X_INV_MASS];
+
+  // engine.fwd_kinematics of one free body
+  const V3 base = v3(q[0], q[1], q[2]);
+  Q4 quat; quat.x = q[3]; quat.y = q[4]; quat.z = q[5]; quat.w = q[6];
+  const M33 R = qmat(quat);
+  const V3 com_w = add(base, torch_mv(R, load3(T + X_COM)));
+  const V3 com_r = sub(com_w, base);
+  const V3 vlin = v3(qd[0], qd[1], qd[2]), omega = v3(qd[3], qd[4], qd[5]);
+
+  // engine.points_world, point_inertia, contact_plane (the implicit branch)
+  // and accumulate_body_forces
+  const M33 Iinv = torch_rotate_tensor(R, T + X_INERTIA_INV);
+  const float hc_vel = T[X_HC_VEL], hc_cap = T[X_HC_CAP], kn_c = T[X_KN], kd = T[X_KD];
+  const bool acc_units = T[X_ACC_UNITS] != 0.f;
+  float fsp[BOX_PTS][6];
+#pragma unroll
+  for (int p = 0; p < BOX_PTS; ++p) {
+    const V3 pl = load3(T + X_POINT_LOCAL + 3 * p);
+    const V3 pw = add(base, v3(lsum3(R.m[0][0] * pl.x, R.m[0][1] * pl.y, R.m[0][2] * pl.z),
+                               lsum3(R.m[1][0] * pl.x, R.m[1][1] * pl.y, R.m[1][2] * pl.z),
+                               lsum3(R.m[2][0] * pl.x, R.m[2][1] * pl.y, R.m[2][2] * pl.z)));
+    const V3 rb = sub(pw, base);
+    const V3 vw = add(vlin, torch_cross(omega, rb));
+    const V3 rc = sub(pw, com_w);
+    const V3 nrm = v3(0.f, 0.f, 1.f);
+
+    const float depth = T[X_RADIUS + p] - pw.z;
+    const float vn = lsum3(vw.x * nrm.x, vw.y * nrm.y, vw.z * nrm.z);
+    const V3 vt = sub(vw, v3(vn * nrm.x, vn * nrm.y, vn * nrm.z));
+    const float vt_norm = sqrtf(lsum3(vt.x * vt.x, vt.y * vt.y, vt.z * vt.z) + 1e-12f);
+    const float w_n = inv_mass_along(Iinv, inv_m, rc, nrm);
+    const V3 t_dir = v3(vt.x / vt_norm, vt.y / vt_norm, vt.z / vt_norm);
+    const float w_t = inv_mass_along(Iinv, inv_m, rc, t_dir);
+    // kn a tensor when hc_vel > 0, else the Python float (kh, den then
+    // rounded once from their double values)
+    float kn = kn_c, kh = T[X_KH];
+    if (hc_vel != 0.f) {
+      float fac = jmax(1.0f - vn * T[X_HC_INV], 0.f);
+      if (hc_cap > 0.f) fac = jmin(fac, hc_cap);
+      if (hc_vel > 0.f) {
+        kn = fac * kn_c;
+        kh = kn * h + kd;
+      }
+    }
+    float den;
+    if (acc_units)
+      den = w_n * (hc_vel > 0.f ? kh * h + 1.0f : T[X_DEN]);
+    else
+      den = w_n * h * kh + 1.0f;
+    float fn = (kn * depth - kh * vn) / den;
+    fn = jmax(fn, 0.f) * (depth > 0.f ? 1.f : 0.f);
+    fn = jmin(fn, jmax(T[X_MAX_DEPEN_VEL] - vn, 0.f) / (w_n * h));
+    const float ft_mag = jmin(T[X_MU + p] * fn, vt_norm / (w_t * h));
+    const V3 f = add(v3(fn * nrm.x, fn * nrm.y, fn * nrm.z),
+                     v3(-ft_mag * vt.x / vt_norm, -ft_mag * vt.y / vt_norm,
+                        -ft_mag * vt.z / vt_norm));
+    const V3 tq = torch_cross(rb, f);
+    fsp[p][0] = tq.x; fsp[p][1] = tq.y; fsp[p][2] = tq.z;
+    fsp[p][3] = f.x; fsp[p][4] = f.y; fsp[p][5] = f.z;
+  }
+  float f_ext[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+    f_ext[c] = (0.f + torch_serial_sum<BOX_PTS>([&](int p) { return fsp[p][c]; })) + wsum[c];
+
+  // engine.forward_dynamics of one free body: spatial inertia, bias, the
+  // 6x6 mass matrix through the motion axes, the unrolled Cholesky solve
+  const M33 Iw = torch_rotate_tensor(R, T + X_INERTIA);
+  const float cx[3][3] = {{0.f, -com_r.z, com_r.y}, {com_r.z, 0.f, -com_r.x},
+                          {-com_r.y, com_r.x, 0.f}};
+  float Isp[6][6];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float v[3] = {cx[i][0] * cx[0][j], cx[i][1] * cx[1][j], cx[i][2] * cx[2][j]};
+      const float mcc = torch_serial_sum<3>([&](int k) { return v[k]; });
+      Isp[i][j] = Iw.m[i][j] - mass * mcc;
+      Isp[i][3 + j] = mass * cx[i][j];
+      Isp[3 + i][j] = -mass * cx[i][j];
+      Isp[3 + i][3 + j] = mass * (i == j ? 1.f : 0.f);
+    }
+  // phi[j]: the base's motion axes, linear (j < 3) then angular
+  float phi[6][6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) phi[j][c] = (j < 3 ? c == 3 + j : c == j - 3) ? 1.f : 0.f;
+  float M[6][6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float fI[6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      float v[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) v[c] = Isp[r][c] * phi[j][c];
+      fI[r] = lsum6(v);
+    }
+#pragma unroll
+    for (int i = 0; i <= j; ++i) {
+      float v[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) v[c] = phi[i][c] * fI[c];
+      M[i][j] = M[j][i] = lsum6(v);
+    }
+  }
+  const V3 vxw = torch_cross(vlin, omega);
+  const float avp[6] = {0.f, 0.f, 0.f, vxw.x, vxw.y, vxw.z};
+  const float vsp[6] = {omega.x, omega.y, omega.z, vlin.x, vlin.y, vlin.z};
+  float Ia[6], Iv[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    float va[6], vv[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) { va[c] = Isp[r][c] * avp[c]; vv[c] = Isp[r][c] * vsp[c]; }
+    Ia[r] = lsum6(va);
+    Iv[r] = lsum6(vv);
+  }
+  const V3 Iv_t = v3(Iv[0], Iv[1], Iv[2]), Iv_f = v3(Iv[3], Iv[4], Iv[5]);
+  const V3 fc_t = add(torch_cross(omega, Iv_t), torch_cross(vlin, Iv_f));
+  const V3 fc_f = torch_cross(omega, Iv_f);
+  const V3 mg = load3(T + X_MG);
+  const V3 g_t = torch_cross(com_r, mg);
+  const float fc[6] = {fc_t.x, fc_t.y, fc_t.z, fc_f.x, fc_f.y, fc_f.z};
+  const float fg[6] = {g_t.x, g_t.y, g_t.z, mg.x, mg.y, mg.z};
+  float fs[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) fs[r] = ((Ia[r] + fc[r]) - fg[r]) - f_ext[r];
+  float rhs[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float v[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) v[c] = phi[j][c] * fs[c];
+    rhs[j] = -lsum6(v);
+  }
+  // engine.cholesky_solve_rows over the dense 6x6
+  float L[6][6], inv_d[6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int b = 0; b <= a; ++b) {
+      float s = M[a][b];
+#pragma unroll
+      for (int k = 0; k < b; ++k) s = s - L[a][k] * L[b][k];
+      if (a == b) {
+        L[a][a] = sqrtf(jmax(s, 1e-12f));
+        inv_d[a] = 1.0f / L[a][a];
+      } else {
+        L[a][b] = s * inv_d[b];
+      }
+    }
+  float y[6], qacc[6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    float s = rhs[a];
+#pragma unroll
+    for (int k = 0; k < a; ++k) s = s - L[a][k] * y[k];
+    y[a] = s * inv_d[a];
+  }
+#pragma unroll
+  for (int a = 5; a >= 0; --a) {
+    float s = y[a];
+#pragma unroll
+    for (int k = a + 1; k < 6; ++k) s = s - L[k][a] * qacc[k];
+    qacc[a] = s * inv_d[a];
+  }
+
+  // engine.integrate: semi-implicit Euler with the PhysX clamps
+  const float max_lin = T[X_MAX_LIN_VEL], max_ang = T[X_MAX_ANG_VEL], half_h = T[X_HALF_H];
+  float nqv[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float lim = k < 3 ? max_lin : max_ang;
+    nqv[k] = jclip(qd[k] + qacc[k] * h, -lim, lim);
+    qvel_out[(long long)e * 6 + k] = nqv[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) qpos_out[(long long)e * 7 + k] = q[k] + nqv[k] * h;
+  Q4 dq; dq.x = nqv[3] * half_h; dq.y = nqv[4] * half_h; dq.z = nqv[5] * half_h; dq.w = 0.f;
+  Q4 s = qmul(dq, quat);
+  s.x = quat.x + s.x; s.y = quat.y + s.y; s.z = quat.z + s.z; s.w = quat.w + s.w;
+  const float sq[4] = {s.x * s.x, s.y * s.y, s.z * s.z, s.w * s.w};
+  const float norm = jmax(sqrtf(torch_lane_sum<4>([&](int k) { return sq[k]; })), 1e-9f);
+  qpos_out[(long long)e * 7 + 3] = s.x / norm;
+  qpos_out[(long long)e * 7 + 4] = s.y / norm;
+  qpos_out[(long long)e * 7 + 5] = s.z / norm;
+  qpos_out[(long long)e * 7 + 6] = s.w / norm;
+}
+
+template <int ANTS>
+void box_launch(const void* table, int E, const void* wrench, const void* box_qpos,
+                const void* box_qvel, void* box_qpos_out, void* box_qvel_out, void* stream) {
+  box_body_step<ANTS><<<(E + BOX_THREADS - 1) / BOX_THREADS, BOX_THREADS, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)table, E, (const float*)wrench, (const float*)box_qpos,
+      (const float*)box_qvel, (float*)box_qpos_out, (float*)box_qvel_out);
+}
+
+}  // namespace
+
+// Floats in the box kernel's constant table (ops/fused_substep.py::box_table).
+extern "C" int box_table_len() { return BOX_TABLE_LEN; }
+
+// The push-box's substep for E envs on `stream`; allocates nothing.  wrench:
+// B1's un-summed [6, E * num_ants] output (an env's ants contiguous);
+// box_qpos [E, 7], box_qvel [E, 6] in and out.  Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a table not of the compiled size or a
+// num_ants it is not compiled for.
+extern "C" int box_substep_launch(const void* table, int table_len, int num_ants, int E,
+                                  const void* wrench, const void* box_qpos, const void* box_qvel,
+                                  void* box_qpos_out, void* box_qvel_out, void* stream) {
+  if (table_len != BOX_TABLE_LEN || (num_ants != BOX_ANTS_ONE && num_ants != BOX_ANTS_TEN))
+    return (int)cudaErrorInvalidValue;
+  if (E > 0 && num_ants == BOX_ANTS_ONE)
+    box_launch<BOX_ANTS_ONE>(table, E, wrench, box_qpos, box_qvel, box_qpos_out, box_qvel_out,
+                             stream);
+  else if (E > 0)
+    box_launch<BOX_ANTS_TEN>(table, E, wrench, box_qpos, box_qvel, box_qpos_out, box_qvel_out,
+                             stream);
+  return (int)cudaGetLastError();
 }

@@ -5,10 +5,8 @@ The flat articulation batch B = E * num_ants is laid out struct-of-arrays,
 [field, B], and each physics substep is ONE launch of the CUDA kernel in
 csrc/substep.cu (a team of four lanes per articulation, one per leg).  The
 kernel is compiled for the ant's tree (KERNEL_TREE); its wrappers refuse a
-table baked from another (`check_kernel_tree`).  Between launches the
-per-ant box wrenches are summed per env and the push-box (one free body per
-env) takes its own substep in plain PyTorch.  Only the foot sensors of the
-last substep are kept, as the reference does.
+table baked from another (`check_kernel_tree`).  Only the foot sensors of
+the last substep are kept, as the reference does.
 
 `substep_soa` is the dispatch point: a CUDA tensor goes to the kernel (or
 raises), a CPU tensor goes to the plain version in scalar_phys.  There is no
@@ -17,6 +15,13 @@ kernel's legacy instantiation (the reference's explicit contact branch).
 With domain randomization (spec.dr_spec set) the scene's DrSample travels
 as one more [41, B] operand (`pack_dr`, fields in DR_LAYOUT's order) and
 runs the kernel's DR instantiation of either branch.
+
+The push-box (one free body per env) steps after each launch of B1 on
+`box_substep_soa`: on the card one launch of the same library's box kernel
+(`BoxSubstepKernel`), which sums the env's ants' [6, B] wrenches on the way
+in and reads its constants from a table baked once per device
+(`box_table`); on the CPU the wrench sum in torch and envs/ant_scene.py's
+plain `box_substep`, which the kernel follows operation for operation.
 
 The same source holds B6 (`DebugSubstepKernel`, dispatched by
 `debug_substep_soa`): the counterpart of scripts/debug_fused_tpu.py's
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import inspect
 
 import numpy as np
 import torch
@@ -35,7 +41,8 @@ import torch
 from massive_marl_tpu_torch.envs.ant_scene import box_substep
 from massive_marl_tpu_torch.ops import _build
 from massive_marl_tpu_torch.ops import scalar_phys as sp
-from massive_marl_tpu_torch.utils.profiling import spanned
+from massive_marl_tpu_torch.phys import engine
+from massive_marl_tpu_torch.utils.profiling import span, spanned
 
 NQ, NV, NU = sp.NQ, sp.NV, sp.NJ
 # the DR operand's fields, in order (massive_marl_tpu's _dr_field_layout)
@@ -136,6 +143,8 @@ class SubstepKernel:
         "debug_substep_launch": ([_P] + [_I] * 3 + [_P] * 9, _I),
         "substep_threads_per_block": ([], _I),
         "substep_blocks_per_sm": ([_I], _I),
+        "box_table_len": ([], _I),
+        "box_substep_launch": ([_P] + [_I] * 3 + [_P] * 6, _I),
     }
     # the instantiations substep_blocks_per_sm numbers
     INSTANTIATIONS = ("B1", "B1 legacy", "B1-DR", "B1-DR legacy", "B6")
@@ -246,6 +255,113 @@ class DebugSubstepKernel:
 
 debug_substep_kernel = DebugSubstepKernel()
 
+# the box kernel's constant table, in csrc/substep.cu's X_* order
+BOX_POINTS = 8
+BOX_LAYOUT = (("mass", 1), ("inv_mass", 1), ("com", 3), ("inertia", 9), ("inertia_inv", 9),
+              ("mg", 3), ("h", 1), ("half_h", 1), ("kn", 1), ("kd", 1), ("kh", 1), ("den", 1),
+              ("hc_inv", 1), ("hc_vel", 1), ("hc_cap", 1), ("acc_units", 1),
+              ("max_depen_vel", 1), ("max_lin_vel", 1), ("max_ang_vel", 1),
+              ("point_local", 3 * BOX_POINTS), ("radius", BOX_POINTS), ("mu", BOX_POINTS))
+BOX_ANTS = (1, 10)   # ants per env the box kernel is compiled for: OneAnt's, TenAnt's
+
+
+def box_table(spec, h: float, dev) -> torch.Tensor:
+    """The box kernel's float32 table on dev, BOX_LAYOUT's fields in order.  Each
+    entry is made by the operation that box_substep applies to it on every
+    call (the reciprocal of the mass, the closed-form inverse inertia, the
+    pair friction, mass x gravity on dev; a Python float rounded to float32
+    where torch rounds it; kh and den from their double values, as box_substep
+    computes them when kn is a Python float)."""
+    bsys, cp = spec.box_sys, spec.contact
+    mass = bsys.mass.to(dev)
+    gravity = torch.tensor(spec.gravity, dtype=torch.float32, device=dev)
+    mu = (spec.box_ground_mu if spec.box_ground_mu is not None
+          else engine.combine_mu(bsys.point_friction.to(dev), spec.plane_friction,
+                                 spec.friction_combine))
+    kh = cp.stiffness * h + cp.damping
+    clamps = inspect.signature(engine.integrate).parameters
+    parts = {
+        "mass": mass[..., 0], "inv_mass": 1.0 / mass[..., 0, None], "com": bsys.com[0],
+        "inertia": bsys.inertia[0], "inertia_inv": engine._inv3x3_sym(bsys.inertia[0].to(dev)),
+        "mg": mass[..., 0, None] * gravity, "h": h, "half_h": 0.5 * h, "kn": cp.stiffness,
+        "kd": cp.damping, "kh": kh, "den": 1.0 + h * kh,
+        "hc_inv": np.float32(1.0) / np.float32(max(cp.hc_vel, 1e-9)), "hc_vel": cp.hc_vel,
+        "hc_cap": cp.hc_cap, "acc_units": float(bool(cp.acc_units)),
+        "max_depen_vel": cp.max_depen_vel, "max_lin_vel": clamps["max_lin_vel"].default,
+        "max_ang_vel": clamps["max_ang_vel"].default, "point_local": bsys.point_local,
+        "radius": bsys.point_radius, "mu": mu,
+    }
+    out = []
+    for name, n in BOX_LAYOUT:
+        x = torch.as_tensor(parts[name], dtype=torch.float32, device=dev).reshape(-1)
+        out.append(x.expand(n) if x.numel() == 1 else x)
+        if out[-1].numel() != n:
+            raise ValueError(f"box table: {name} has {x.numel()} floats, the kernel reads {n}")
+    return torch.cat(out).contiguous()
+
+
+class BoxSubstepKernel:
+    """ctypes binding of csrc/substep.cu's push-box launcher (B1's library):
+    the box's free-body substep for every env in one launch.  `launches`
+    counts its launches and nothing else.  Tables are kept per box system,
+    device and the options they bake (each with its system, so no key's id
+    is reused)."""
+
+    def __init__(self):
+        self.launches = 0
+        self._tables = {}
+
+    def table(self, spec, h: float, dev) -> torch.Tensor:
+        key = (id(spec.box_sys), str(dev), h, spec.contact, tuple(spec.gravity),
+               spec.plane_friction, spec.friction_combine, spec.box_ground_mu)
+        if key not in self._tables:
+            self._tables[key] = (spec.box_sys, box_table(spec, h, dev))
+        return self._tables[key][1]
+
+    def __call__(self, spec, box_qpos, box_qvel, wrench, h: float):
+        """box_qpos [E,7], box_qvel [E,6]; wrench: B1's un-summed [6, B]
+        output, B = E x spec.num_ants.  Returns the box's (qpos', qvel')."""
+        bsys, A = spec.box_sys, spec.num_ants
+        if tuple(bsys.point_body) != (0,) * BOX_POINTS or bsys.nb != 1:
+            raise ValueError(f"the box kernel steps one body with {BOX_POINTS} contact points, "
+                             f"got {bsys.nb} bodies and {len(bsys.point_body)} points")
+        if A not in BOX_ANTS:
+            raise ValueError(f"the box kernel is compiled for {BOX_ANTS} ants an env, got {A}")
+        dev, E = box_qpos.device, box_qpos.shape[0]
+        _check_operands({"box_qpos": (box_qpos, (E, 7)), "box_qvel": (box_qvel, (E, 6)),
+                         "wrench": (wrench, (6, E * A))}, dev)
+        lib = substep_kernel.load()
+        table = self.table(spec, h, dev)
+        if lib.box_table_len() != table.numel():
+            raise ValueError(f"box table has {table.numel()} floats, the kernel expects "
+                             f"{lib.box_table_len()}")
+        qpos_out = torch.empty_like(box_qpos)
+        qvel_out = torch.empty_like(box_qvel)
+        err = lib.box_substep_launch(
+            table.data_ptr(), table.numel(), A, E, wrench.data_ptr(), box_qpos.data_ptr(),
+            box_qvel.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"box substep kernel launch failed with CUDA error {err}")
+        self.launches += 1
+        return qpos_out, qvel_out
+
+
+box_substep_kernel = BoxSubstepKernel()
+
+
+def box_substep_soa(spec, box_qpos, box_qvel, wrench, h: float):
+    """The push-box's substep from B1's un-summed [6, B] wrench: the box
+    kernel for CUDA tensors, the wrench sum and the plain box_substep for CPU
+    tensors."""
+    if box_qpos.device.type == "cuda":
+        with span("env.box_substep"):
+            return box_substep_kernel(spec, box_qpos.contiguous(), box_qvel.contiguous(), wrench, h)
+    if box_qpos.device.type == "cpu":
+        wrench_sum = wrench.reshape(6, box_qpos.shape[0], spec.num_ants).sum(-1).t()
+        return box_substep(spec, box_qpos, box_qvel, wrench_sum, h)
+    raise ValueError(f"no box substep for device {box_qpos.device}")
+
 
 def substep_plain(c: sp.AntConsts, num_ants, qpos, qvel, tau, box_qpos, box_qvel, dr=None):
     """The plain PyTorch version on the same [field, B] operands."""
@@ -334,7 +450,7 @@ def fused_scene_step(spec, state, actions: torch.Tensor, consts: sp.AntConsts | 
         qpos, qvel, wrench, sens = substep_soa(c, A, qpos, qvel, tau,
                                                bq.t().contiguous(), bv.t().contiguous(), dr)
         if has_box:
-            bq, bv = box_substep(spec, bq, bv, wrench.reshape(6, E, A).sum(-1).t(), h)
+            bq, bv = box_substep_soa(spec, bq, bv, wrench, h)
 
     sensors = sens.reshape(sp.NS, 6, E, A).permute(2, 3, 0, 1)
     return dataclasses.replace(

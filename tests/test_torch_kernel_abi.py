@@ -86,6 +86,7 @@ def test_signature_matches_declaration(lib, name):
 # the group each kernel's device time belongs to in chip_smoke's profiles
 KERNEL_GROUP_OF = {
     "substep_kernel": "B1 substep kernel",
+    "box_body_step": "box free-body step",
     "dense_fwd_wgmma_kernel": "B2 dense_elu_ln fwd",
     "ln_bwd_rows_wgmma_kernel": "B3 dense_elu_ln bwd row pass",
     "tower_fwd_wgmma_kernel": "B4 mlp_tower fwd",
