@@ -32,6 +32,13 @@ the batched env step, then per-agent GAE and the updates:
 
 The trajectory dict keeps the reference's [T, E, N, ...] layout (obs
 [T,E,N,obs], share [T,E,share], actions, logp, values, reward, done, bad).
+The program's spans (utils/profiling; off unless the recorder is on):
+`trainer.rollout` and `trainer.update` around the two phases,
+`trainer.policy` around each rollout step's actor, critic, sample and
+log-prob, `update.agent` around each agent's epochs of the sequential
+schedule, and `update.forward` / `update.backward` / `update.optimizer`
+around each actor and critic step's loss, gradient and Adam step.
+
 Random numbers come from the runner's torch.Generator, so a run does not
 replay the reference's threefry stream; the tests feed both packages the
 same trajectory and, for HAPPO and HATRPO, the same agent permutation.
@@ -80,6 +87,7 @@ from massive_marl_tpu_torch.ops.fused_mlp import feature_norm
 from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
+from massive_marl_tpu_torch.utils.profiling import span, spanned
 from massive_marl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 from massive_marl_tpu_torch.wrap.vec_task import split_multi_agent_obs
 
@@ -433,6 +441,7 @@ class MarlRunner:
         return obs, obs
 
     # ---------------------------------------------------------------- rollout
+    @spanned("trainer.rollout")
     @torch.no_grad()
     def rollout_phase(self) -> Dict[str, torch.Tensor]:
         """episode_length steps of every agent's policy and the env step;
@@ -443,14 +452,15 @@ class MarlRunner:
         env_state = st.env_state
         steps = []
         for _ in range(cfg.episode_length):
-            obs_buf = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
-            obs, cin = self._agent_views(obs_buf)
-            mean, std = self.actor.apply(st.actor_params, obs)              # [N,E,act]
-            noise = draw(torch.randn, mean.shape, self.generator, axis=1, device=self.device)
-            actions = mean + std * noise
-            logp = nets.normal_log_prob(mean, std, actions)                 # [N,E]
-            values = self.critic.apply(st.critic_params, cin)               # [N,E]
-            a_clip = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
+            with span("trainer.policy"):
+                obs_buf = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
+                obs, cin = self._agent_views(obs_buf)
+                mean, std = self.actor.apply(st.actor_params, obs)          # [N,E,act]
+                noise = draw(torch.randn, mean.shape, self.generator, axis=1, device=self.device)
+                actions = mean + std * noise
+                logp = nets.normal_log_prob(mean, std, actions)             # [N,E]
+                values = self.critic.apply(st.critic_params, cin)           # [N,E]
+                a_clip = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
             nxt = self.env.step_batch(env_state, a_clip.transpose(0, 1).reshape(E, -1))
             if cfg.use_proper_time_limits and max_ep_len is not None:
                 bad = 1.0 - (nxt.done & (nxt.progress >= max_ep_len - 1)).float()
@@ -577,10 +587,13 @@ class MarlRunner:
 
     @staticmethod
     def _grads(loss_fn, tree):
-        """Gradients of loss_fn(tree) wrt every leaf, and its aux output."""
+        """Gradients of loss_fn(tree) wrt every leaf, and its aux output
+        (the spans update.forward and update.backward)."""
         leaves = [x.detach().requires_grad_() for x in tree_leaves(tree)]
-        loss, aux = loss_fn(tree_unflatten(tree, leaves))
-        return list(torch.autograd.grad(loss, leaves)), aux
+        with span("update.forward"):
+            loss, aux = loss_fn(tree_unflatten(tree, leaves))
+        with span("update.backward"):
+            return list(torch.autograd.grad(loss, leaves)), aux
 
     def _update_once(self, a_apply, c_apply, ap, ao, cp, co, vn, mb, agents: slice,
                      actor: bool = True, n: int = 0):
@@ -596,8 +609,9 @@ class MarlRunner:
                 agrad, aloss = self._grads(lambda p: self._actor_loss(a_apply, p, mb, n), ap)
             *agrad, aloss = self._reduce(agrad + [aloss])
             agrad = self._round(agrad, ap)
-            self.actor_tx.step(tree_leaves(ap), agrad, ao.mu, ao.nu,
-                               st.actor_opt.count[agents.start])
+            with span("update.optimizer"):
+                self.actor_tx.step(tree_leaves(ap), agrad, ao.mu, ao.nu,
+                                   st.actor_opt.count[agents.start])
         moments = None if self.mesh is LOCAL else \
             (lambda r: tuple(self._reduce([self._bmean(r, n), self._bmean(r * r, n)])))
         vn, rn_c, rn_o = nets.norm_targets(vn, mb["returns"], self.norm_mode, moments)
@@ -606,8 +620,9 @@ class MarlRunner:
                                        cp)
         *cgrad, vloss = self._reduce(cgrad + [vloss])
         cgrad = self._round(cgrad, cp)
-        self.critic_tx.step(tree_leaves(cp), cgrad, co.mu, co.nu,
-                            st.critic_opt.count[agents.start])
+        with span("update.optimizer"):
+            self.critic_tx.step(tree_leaves(cp), cgrad, co.mu, co.nu,
+                                st.critic_opt.count[agents.start])
         for opt in (st.actor_opt, st.critic_opt) if actor else (st.critic_opt,):
             opt.count[agents] = [x + 1 for x in opt.count[agents]]
         return vn, aloss, vloss
@@ -824,31 +839,35 @@ class MarlRunner:
         alosses, vlosses = [], []
         self.trpo_log = []
         for i in (int(i) for i in perm):
-            sl = slice(i, i + 1)
-            batch = {k: v[sl] for k, v in data.items()}
-            batch["obs"] = norm(batch["obs"])
-            batch["cin"] = share_in if share_in is not None else batch["obs"]
-            batch["factor"] = factor
-            ap = tree_map(lambda x: x[sl], st.actor_params)
-            if self.is_happo:
-                with torch.no_grad():
-                    old_logp = nets.normal_log_prob(*a_apply(ap, batch["obs"]), batch["actions"])
-            if self.is_trpo:
-                aloss = self._trpo_actor_update(a_apply, ap, batch)
-                vn, _, vl = self._epochs(a_apply, c_apply, batch, sl, st.vnorm.index(sl),
-                                         actor=False)
-            else:
-                vn, al, vl = self._epochs(a_apply, c_apply, batch, sl, st.vnorm.index(sl))
-                aloss = _nested_mean([[x.mean() for x in e] for e in al])
-            st.vnorm.assign(sl, vn)
-            if self.is_happo:
-                with torch.no_grad():
-                    new_logp = nets.normal_log_prob(*a_apply(ap, batch["obs"]), batch["actions"])
-                    factor = factor * torch.exp(new_logp - old_logp)
-            alosses.append(aloss)
-            vlosses.append(_nested_mean([[x.mean() for x in e] for e in vl]))
+            with span("update.agent"):
+                sl = slice(i, i + 1)
+                batch = {k: v[sl] for k, v in data.items()}
+                batch["obs"] = norm(batch["obs"])
+                batch["cin"] = share_in if share_in is not None else batch["obs"]
+                batch["factor"] = factor
+                ap = tree_map(lambda x: x[sl], st.actor_params)
+                if self.is_happo:
+                    with torch.no_grad():
+                        old_logp = nets.normal_log_prob(*a_apply(ap, batch["obs"]),
+                                                        batch["actions"])
+                if self.is_trpo:
+                    aloss = self._trpo_actor_update(a_apply, ap, batch)
+                    vn, _, vl = self._epochs(a_apply, c_apply, batch, sl, st.vnorm.index(sl),
+                                             actor=False)
+                else:
+                    vn, al, vl = self._epochs(a_apply, c_apply, batch, sl, st.vnorm.index(sl))
+                    aloss = _nested_mean([[x.mean() for x in e] for e in al])
+                st.vnorm.assign(sl, vn)
+                if self.is_happo:
+                    with torch.no_grad():
+                        new_logp = nets.normal_log_prob(*a_apply(ap, batch["obs"]),
+                                                        batch["actions"])
+                        factor = factor * torch.exp(new_logp - old_logp)
+                alosses.append(aloss)
+                vlosses.append(_nested_mean([[x.mean() for x in e] for e in vl]))
         return torch.stack(alosses).mean(), torch.stack(vlosses).mean()
 
+    @spanned("trainer.update")
     def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor, *,
                      perm=None) -> Dict[str, torch.Tensor]:
         """GAE and the updates on one trajectory; returns the iteration's
