@@ -2085,7 +2085,8 @@ def profile_iteration(trainer, path, label, require=(), run=timed_iteration):
     """One training iteration (`run`) under torch.profiler: device time by
     kernel group and name and the device's busy share; the full list goes
     to path.  require: (group, kernel wrapper) pairs; raises if a wrapper
-    launched in the iteration and its group shows no device time."""
+    launched in the iteration and its group shows no device time.  Returns
+    the device kernels' launches by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2093,11 +2094,12 @@ def profile_iteration(trainer, path, label, require=(), run=timed_iteration):
     before = [k.launches for _, k in require]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, roll_s, upd_s = run(trainer)
-    by_name, n_kernels = {}, 0
+    by_name, launches = {}, {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-            n_kernels += 1
+            launches[ev.name] = launches.get(ev.name, 0) + 1
+    n_kernels = sum(launches.values())
     groups = {}
     for name, ms in by_name.items():
         g = kernel_group(name)
@@ -2121,6 +2123,27 @@ def profile_iteration(trainer, path, label, require=(), run=timed_iteration):
         if k.launches > n0 and not groups.get(g):
             raise AssertionError(f"profile {label}: {k.launches - n0} launches of the {g} "
                                  "kernel but no device time in its group")
+    return launches
+
+
+# per B2-B5 wrapper (update_graph.KERNELS), the kernel it launches once a call
+ROW_PASS = ("dense_fwd_wgmma", "ln_bwd_rows_wgmma", "tower_fwd_wgmma", "tower_bwd_wgmma")
+
+
+def profile_replay(runner, path, label, require):
+    """profile_iteration of a MARL runner whose update is a replay of its
+    update graph: raises unless it replayed and the trace holds each B2-B5
+    row-pass kernel as often as the capture called its wrapper.  Returns
+    those counts (B2-B5)."""
+    g = runner.update_graph
+    replays = g.replays
+    launches = profile_iteration(runner, path, label, require)
+    got = [sum(n for name, n in launches.items() if k in name) for k in ROW_PASS]
+    if g.replays != replays + 1 or got != g.calls:
+        raise AssertionError(f"profile {label}: replays {replays} -> {g.replays}, row-pass "
+                             f"kernels B2-B5 {got} in the trace, the capture's calls {g.calls}")
+    print(f"  {label}'s update replayed its graph: B2-B5 row-pass kernels in the trace {got}")
+    return got
 
 
 def rollout_step_parts(ppo):
@@ -2186,12 +2209,73 @@ def build_all(libs):
                 print("  ptxas:", line.strip())
 
 
+def graph_held_off(runner):
+    """A context in which the MARL runner's update graph refuses every
+    update, so that each runs eagerly; unittest.mock restores it on leaving."""
+    from unittest import mock
+    return mock.patch.object(runner.update_graph, "refusal", lambda r, perm=None: "held off")
+
+
+def graph_against_eager(make, check, counts, delta, per_iter):
+    """Phase 6's comparison of MAPPO's update graph with the eager update:
+    two runners from the same seeds, the second with the graph held off,
+    3 iterations each in turns (eager, capture, replay on the first); every
+    parameter, Adam moment, value-normaliser statistic, step count and loss
+    the same bits after each.  B1-B5 host launches: the eager runner's are
+    per_iter, the graphed runner's too but for the replay, which calls no
+    B2-B5 wrapper.  Returns the eager runner's launches of B1-B5 over its
+    3 iterations."""
+    import torch
+    from massive_marl_tpu_torch.algos.marl.runner import MarlConfig
+    from massive_marl_tpu_torch.algos.marl.update_graph import state_tensors
+
+    graphed, _ = make(MarlConfig())
+    eager, _ = make(MarlConfig())
+    eager_launches = (0,) * len(per_iter)
+    with graph_held_off(eager):
+        for it in range(3):
+            out = []
+            for r in (graphed, eager):
+                before = counts()
+                m, roll_s, upd_s = timed_iteration(r)
+                got = delta(before)
+                want = replay_launches(per_iter) if r is graphed and it == 2 else per_iter
+                check(r, it, m, got, want)
+                out.append((m, upd_s, [r.state.actor_opt.count, r.state.critic_opt.count]))
+                if r is eager:
+                    eager_launches = tuple(a + b for a, b in zip(eager_launches, got))
+            (mg, ug, cg), (me, ue, ce) = out
+            differ = [i for i, (a, b) in
+                      enumerate(zip(state_tensors(graphed), state_tensors(eager)))
+                      if not torch.equal(a, b)]
+            if differ or mg != me or cg != ce:
+                raise AssertionError(f"graph against eager, iteration {it}: state leaves "
+                                     f"{differ} differ, losses {mg} / {me}, counts {cg} / {ce}")
+            print(f"  graph against eager, it {it}: update {1e3 * ug:.1f} ms graphed, "
+                  f"{1e3 * ue:.1f} ms eager; the same bits")
+    g = graphed.update_graph
+    print(f"MAPPO update graph against the eager update (E={E}, 3 iterations): the same bits "
+          f"each iteration; {g.eager_updates} eager, {g.captures} capture, {g.replays} replay; "
+          f"eager runner's launches B1-B5 {eager_launches}")
+    del graphed, eager
+    torch.cuda.empty_cache()
+    return eager_launches
+
+
+def replay_launches(per_iter):
+    """The B1-B5 host launches of an iteration whose update is a replay of
+    the update graph: the rollout's B1 alone."""
+    return per_iter[:1] + (0,) * (len(per_iter) - 1)
+
+
 def marl_phase(dev):
     """Phase 6: TenAnt + MAPPO (sequential schedule) at full width, then one
     stacked-schedule and one HAPPO iteration, MAPPO with FUSED_TOWER=1,
-    HATRPO, and HATRPO with FUSED_TOWER=1.  Returns the MAPPO run's launch
-    counts of B1-B3, the FUSED_TOWER=1 MAPPO run's of B4/B5, and the
-    MAPPO, MAPPO FUSED_TOWER=1 and HATRPO runners for the profiles."""
+    HATRPO, and HATRPO with FUSED_TOWER=1.  Returns the B1-B5 wrappers'
+    host launches of the MAPPO run's 4 iterations (eager, the update
+    graph's capture, two replays, which call no B2/B3 wrapper) and of the
+    FUSED_TOWER=1 MAPPO run's 2 (eager, capture), and the MAPPO, MAPPO
+    FUSED_TOWER=1 and HATRPO runners for the profiles."""
     import torch
     from massive_marl_tpu_torch.algos.marl.runner import MarlConfig, MarlRunner
     from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
@@ -2257,21 +2341,29 @@ def marl_phase(dev):
           end="")
     check(runner, 0, runner.last_metrics, counts(), per_iter)
     rows = []
-    for it in range(1, 1 + 3):
+    for it in range(1, 1 + 3):      # the update graph's capture, then two replays
         before = counts()
         m, roll_s, upd_s = timed_iteration(runner)
         rows.append((roll_s, upd_s))
         print(f"  MAPPO it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms;",
               end="")
-        check(runner, it, m, delta(before), per_iter)
+        check(runner, it, m, delta(before), per_iter if it == 1 else replay_launches(per_iter))
     main_counts = counts()
     roll_ms = statistics.median(r for r, _ in rows) * 1e3
     upd_ms = statistics.median(u for _, u in rows) * 1e3
     sps = statistics.median(T * E / (r + u) for r, u in rows)
+    g = runner.update_graph
+    if (g.eager_updates, g.captures, g.replays, g.calls) != (1, 1, 2, list(per_iter[1:])):
+        raise AssertionError(f"MAPPO update graph: eager {g.eager_updates}, captures "
+                             f"{g.captures}, replays {g.replays}, B2-B5 calls a replay "
+                             f"{g.calls}; expected 1, 1, 2, {list(per_iter[1:])}")
     print(f"TenAnt+MAPPO E={E}: {sps:.1f} env-steps/s (median of 3), rollout {roll_ms:.1f} ms, "
           f"update {upd_ms:.1f} ms, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches B1/B2/B3 "
-          f"{main_counts} over 4 iterations")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, host launches B1-B5 "
+          f"{main_counts} over 4 iterations; update graph: {g.eager_updates} eager, "
+          f"{g.captures} capture, {g.replays} replays of {g.calls} B2-B5 calls each "
+          "(counted on the device in phase 7)")
+    graph_against_eager(make, check, counts, delta, per_iter)
 
     for label, cfg in (("MAPPO stacked schedule", MarlConfig(update_schedule="stacked")),
                        ("HAPPO", MarlConfig.from_cfg_train({}, "happo"))):
@@ -2299,11 +2391,14 @@ def marl_phase(dev):
               f"{1e3 * (time.perf_counter() - t0):.1f} ms;", end="")
         check(tower, 0, tower.last_metrics, counts(), want)
         before = counts()
-        m, roll_s, upd_s = timed_iteration(tower)
+        m, roll_s, upd_s = timed_iteration(tower)     # the update graph's capture
         print(f"  MAPPO FUSED_TOWER=1 it 1: rollout {1e3 * roll_s:.1f} ms, update "
               f"{1e3 * upd_s:.1f} ms ({T * E / (roll_s + upd_s):.1f} env-steps/s);", end="")
         check(tower, 1, m, delta(before), want)
         tower_counts = counts()
+        if tower.update_graph.calls != list(want[1:]):
+            raise AssertionError(f"MAPPO FUSED_TOWER=1 update graph: B2-B5 calls a replay "
+                                 f"{tower.update_graph.calls}, expected {list(want[1:])}")
     finally:
         os.environ.pop("FUSED_TOWER")
 
@@ -2445,15 +2540,19 @@ def p8_other_order(t):
         torch.backends.cuda.preferred_blas_library(
             "cublas" if "lt" in str(lib).lower() else "cublaslt")
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = not flag
-        if hasattr(t, "_sequential"):
+        marl = hasattr(t, "_sequential")
+        if marl:
             t._sequential, t._stacked = reordered(t._sequential), reordered(t._stacked)
         try:
-            yield
+            # the update graph would fix the library and the rows' order at
+            # its capture, and draws no permutation inside it
+            with graph_held_off(t) if marl else contextlib.nullcontext():
+                yield
         finally:
             torch.backends.cuda.preferred_blas_library(lib)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
-            t.__dict__.pop("_sequential", None)
-            t.__dict__.pop("_stacked", None)
+            for attr in ("_sequential", "_stacked"):
+                t.__dict__.pop(attr, None)
     return ctx()
 
 
@@ -2915,14 +3014,16 @@ def main() -> int:
                       "recurrent MAPPO")
     del mat, maddpg, rnn_mappo
     b2_req = (("B2 dense_elu_ln fwd", fm.fwd_kernel),)
-    profile_iteration(runner, os.path.join(root, "build", "profile_mappo_iteration.txt"),
-                      "MAPPO", b2_req)
+    marl_replay = profile_replay(runner, os.path.join(root, "build",
+                                                      "profile_mappo_iteration.txt"),
+                                 "MAPPO", b2_req)
     profile_iteration(trpo, os.path.join(root, "build", "profile_hatrpo_iteration.txt"),
                       "HATRPO", b2_req)
     os.environ["FUSED_TOWER"] = "1"
     try:
-        profile_iteration(tower, os.path.join(root, "build", "profile_mappo_tower_iteration.txt"),
-                          "MAPPO FUSED_TOWER=1", (("B4 mlp_tower fwd", fm.tower_fwd_kernel),))
+        tower_replay = profile_replay(
+            tower, os.path.join(root, "build", "profile_mappo_tower_iteration.txt"),
+            "MAPPO FUSED_TOWER=1", (("B4 mlp_tower fwd", fm.tower_fwd_kernel),))
     finally:
         os.environ.pop("FUSED_TOWER")
     del runner, tower, trpo
@@ -2937,6 +3038,10 @@ def main() -> int:
     phase8b(root, p8_ref, p8_spread_)
 
     print(card)
+    # B2-B5 launches: the wrappers' host calls (eager updates and captures,
+    # phase 6) and the row-pass kernels of the replay traced in phase 7
+    mlp_launches = [h + r for h, r in zip(marl_counts[1:], marl_replay)]
+    tower_launches = [h + r for h, r in zip(tower_counts[1:], tower_replay)]
     mlp_entry = lambda name, kind, n, src, line, err, main: {
         "name": name, "route": "cuda", "source": f"massive_marl_tpu_torch/ops/csrc/{src}",
         "replaces": f"massive_marl_tpu/ops/fused_mlp.py:{line}",
@@ -2956,13 +3061,13 @@ def main() -> int:
          "launches": dr_launches, "max_abs_err": dr_row["err"],
          "ms": dr_row["ms"], "plain_ms": dr_row["plain_ms"], "bound_ms": dr_row["bound"],
          "bound_by": dr_row["by"], "library_ms": None},
-        mlp_entry("dense_elu_ln_fwd", "fwd", marl_counts[1], "fused_mlp.cu", 46, mlp_err,
+        mlp_entry("dense_elu_ln_fwd", "fwd", mlp_launches[0], "fused_mlp.cu", 46, mlp_err,
                   mlp_main),
-        mlp_entry("dense_elu_ln_bwd", "bwd", marl_counts[2], "fused_mlp.cu", 66, mlp_err,
+        mlp_entry("dense_elu_ln_bwd", "bwd", mlp_launches[1], "fused_mlp.cu", 66, mlp_err,
                   mlp_main),
-        mlp_entry("mlp_tower_fwd", "fwd", tower_counts[3], "fused_tower.cu", 265, tower_err,
+        mlp_entry("mlp_tower_fwd", "fwd", tower_launches[2], "fused_tower.cu", 265, tower_err,
                   tower_main),
-        mlp_entry("mlp_tower_bwd", "bwd", tower_counts[4], "fused_tower.cu", 288, tower_err,
+        mlp_entry("mlp_tower_bwd", "bwd", tower_launches[3], "fused_tower.cu", 288, tower_err,
                   tower_main),
         {"name": "box_substep", "route": "cuda",
          "source": "massive_marl_tpu_torch/ops/csrc/substep.cu", "replaces": None,

@@ -292,6 +292,7 @@ class RecurrentMarlRunner(MarlRunner):
                     ch0=starts(traj["ch"]) if self.chunked else traj["ch0"],
                     factor=torch.ones(N, L, C, device=self.device),
                     active=torch.ones(N, L, C, device=self.device))
+        self.update_graph.eager_updates += 1     # its own loop, never graphed
         if self.is_happo:
             aloss, vloss = self._happo(data, perm)
         else:

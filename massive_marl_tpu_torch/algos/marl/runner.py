@@ -39,6 +39,12 @@ log-prob, `update.agent` around each agent's epochs of the sequential
 schedule, and `update.forward` / `update.backward` / `update.optimizer`
 around each actor and critic step's loss, gradient and Adam step.
 
+On a CUDA device the sequential fused MAPPO/IPPO update with one
+minibatch an epoch, no mesh and the runner's agent order runs as one CUDA
+graph (update_graph.py, `MarlRunner.update_graph`): eager the first time,
+captured the second, replayed in the span `update.graph` from then on; the
+spans inside the update fire only where it runs eagerly or is captured.
+
 Random numbers come from the runner's torch.Generator, so a run does not
 replay the reference's threefry stream; the tests feed both packages the
 same trajectory and, for HAPPO and HATRPO, the same agent permutation.
@@ -81,6 +87,7 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos.marl import fused_nets, nets
+from massive_marl_tpu_torch.algos.marl.update_graph import UpdateGraph
 from massive_marl_tpu_torch.algos.nets import f32_weight_grads, round_bf16
 from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
 from massive_marl_tpu_torch.ops.fused_mlp import feature_norm
@@ -235,6 +242,18 @@ def _lead(v, x):
     return v.reshape(v.shape + (1,) * (x.dim() - v.dim()))
 
 
+def _foreach_div_scalar(xs, s):
+    """xs divided by a bias correction s in the form ClipAdam.scalars gives
+    for their device, a Python float or a float32 tensor: on CUDA s is the
+    reciprocal and this is the product with it, elsewhere the quotient.
+    torch's CUDA `_foreach_div` by a Python float is itself that product,
+    and its tensor overload divides, so on CUDA the product is written out:
+    a float and a tensor of the same value then give the same bits."""
+    if xs[0].is_cuda:
+        return torch._foreach_mul(xs, s)
+    return torch._foreach_div(xs, s)
+
+
 @dataclass
 class AdamState:
     mu: List[torch.Tensor]      # per leaf, agent-stacked
@@ -256,10 +275,27 @@ class ClipAdam:
         return AdamState(mu=[torch.zeros_like(p, dtype=mu_dtype) for p in leaves],
                          nu=[torch.zeros_like(p) for p in leaves], count=[0] * num_agents)
 
-    def step(self, params, grads, mu, nu, count: int):
+    def scalars(self, count: int, device):
+        """(bc1, bc2, lr) of the step after `count` steps on `device`, as
+        Python floats (float64): Adam's bias corrections and the learning
+        rate.  On CUDA bc1 and bc2 are their reciprocals, which
+        `_foreach_div_scalar` multiplies by there."""
+        c = count + 1
+        bc1, bc2 = 1.0 - self.b1 ** c, 1.0 - self.b2 ** c
+        lr = self.lr(count) if callable(self.lr) else self.lr
+        if torch.device(device).type == "cuda":
+            return 1.0 / bc1, 1.0 / bc2, lr
+        return bc1, bc2, lr
+
+    def step(self, params, grads, mu, nu, count: int, scalars=None):
         """params/grads/mu/nu: lists of [n, ...] tensors (views into the
-        agent-stacked state); count: the n agents' step count before it."""
+        agent-stacked state); count: the n agents' step count before it.
+        scalars: in place of `scalars(count, device)`'s Python floats,
+        float32 device tensors of the same values (a CUDA graph's replays
+        read them from a buffer the host fills, update_graph.py); both
+        forms give the same bits."""
         b1, b2, eps = self.b1, self.b2, self.eps
+        bc1, bc2, lr = self.scalars(count, params[0].device) if scalars is None else scalars
         n = grads[0].shape[0]
         norms = torch._foreach_norm([g[i] for i in range(n) for g in grads])
         gnorm = torch.linalg.vector_norm(torch.stack(norms).reshape(n, -1), dim=1)
@@ -269,18 +305,15 @@ class ClipAdam:
         gs = torch._foreach_mul(grads, [_lead(scale, g) for g in grads])
         if self.wd:
             torch._foreach_add_(gs, params, alpha=self.wd)
-        c = count + 1
-        bc1, bc2 = 1.0 - b1 ** c, 1.0 - b2 ** c
-        lr = self.lr(count) if callable(self.lr) else self.lr
         m = [x.float() for x in mu] if self.mu_bf16 else mu
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, gs, alpha=1 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, gs, gs, value=1 - b2)
-        denom = torch._foreach_div(nu, bc2)
+        denom = _foreach_div_scalar(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(m, bc1)
+        upd = _foreach_div_scalar(m, bc1)
         torch._foreach_div_(upd, denom)
         torch._foreach_mul_(upd, lr)
         with torch.no_grad():
@@ -398,6 +431,7 @@ class MarlRunner:
         self.generator = self.mesh.shard_generator(gen, num_envs)
         self.state: MarlTrainState | None = None
         self.last_metrics: Dict[str, float] = {}
+        self.update_graph = UpdateGraph()
         # HATRPO: per agent of the last update, the Fisher-vector products,
         # the line-search candidates tried (improve, ratio, kl each) and the
         # index of the accepted one (-1: none, the parameters stay)
@@ -611,7 +645,7 @@ class MarlRunner:
             agrad = self._round(agrad, ap)
             with span("update.optimizer"):
                 self.actor_tx.step(tree_leaves(ap), agrad, ao.mu, ao.nu,
-                                   st.actor_opt.count[agents.start])
+                                   *self._adam_count(0, st.actor_opt, agents))
         moments = None if self.mesh is LOCAL else \
             (lambda r: tuple(self._reduce([self._bmean(r, n), self._bmean(r * r, n)])))
         vn, rn_c, rn_o = nets.norm_targets(vn, mb["returns"], self.norm_mode, moments)
@@ -622,10 +656,19 @@ class MarlRunner:
         cgrad = self._round(cgrad, cp)
         with span("update.optimizer"):
             self.critic_tx.step(tree_leaves(cp), cgrad, co.mu, co.nu,
-                                st.critic_opt.count[agents.start])
+                                *self._adam_count(1, st.critic_opt, agents))
         for opt in (st.actor_opt, st.critic_opt) if actor else (st.critic_opt,):
             opt.count[agents] = [x + 1 for x in opt.count[agents]]
         return vn, aloss, vloss
+
+    def _adam_count(self, which: int, opt: AdamState, agents: slice) -> tuple:
+        """ClipAdam.step's count for the agents' next step of the actor's
+        (which 0) or the critic's (1) optimizer; while the update's graph
+        is captured, also the device scalars its replays read for it."""
+        count = opt.count[agents.start]
+        if self.update_graph.base is None:
+            return (count,)
+        return count, self.update_graph.step_scalars(which, agents.start, count)
 
     def _epochs(self, a_apply, c_apply, batch, agents: slice, vn, actor: bool = True):
         """ppo_epoch x num_mini_batch updates of the agents `agents` (the
@@ -886,10 +929,12 @@ class MarlRunner:
                     adv=adv.reshape(N, B), returns=returns.reshape(N, B),
                     active=torch.ones(N, B, device=self.device))
         share = traj["share"].reshape(B, -1)
-        if self.sequential:
-            aloss, vloss = self._sequential(data, share, perm)
+        if self.update_graph.refusal(self, perm) is None:
+            aloss, vloss = self.update_graph.update(self, data, share)
         else:
-            aloss, vloss = self._stacked(data, share)
+            self.update_graph.eager_updates += 1
+            aloss, vloss = (self._sequential(data, share, perm) if self.sequential
+                            else self._stacked(data, share))
 
         st.iteration += 1
         reward, done = self.mesh.mean([traj["reward"].mean(), traj["done"].mean()])
