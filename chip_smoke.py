@@ -2,8 +2,12 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+It checks what the benchmark (port_bench/) does not; what the two share
+(peaks, B1's and B2/B3's bounds, kernel groups, the trace's reading) is
+port_bench's.
+
 Phases; any failure raises and the script exits non-zero:
-  1. the card's name and power limit (nvidia-smi) and torch's device name;
+  1. torch's device name and the card's power limit (nvidia-smi);
   2. build the kernels from massive_marl_tpu_torch/ops/csrc/ (substep.cu:
      B1, its DR instantiation and B6; fused_mlp.cu: B2/B3; fused_tower.cu: B4/B5), one nvcc per
      source, started together; print the build seconds and ptxas' register
@@ -13,9 +17,11 @@ Phases; any failure raises and the script exits non-zero:
      over four state families (feet on the ground, points inside and just
      outside the push-box, hinges beyond their limits, no box); print the
      errors per output (and whether it is bit-identical), the kernel's time
-     (CUDA events, median of 30 launches) beside its bound, the bound's
-     no-FMA floor (twice the operations bound: under -fmad=false each
-     operation is an instruction) and the plain version's time;
+     (CUDA events, median of 30 launches) beside port_bench.roofline.b1's
+     bound, the bound's no-FMA floor (twice the operations bound: under
+     -fmad=false each operation is an instruction) and the plain version's
+     time; raises unless the plain version's operation count and the
+     table's length are the ones that bound assumes;
   3b. the same for B1's legacy branch (ContactParams(beta=None)) over the
      same families; then B6 against its plain version at B = 1024 (its TPU
      shape) and B = 40,960 over the debug tool's three scenarios, box on
@@ -61,19 +67,19 @@ Phases; any failure raises and the script exits non-zero:
      (critic, N = 1) B4's and B5's host time per call, B5's device time per
      pass and its nine products as bf16 torch.bmm (a note);
   5. TenAnt + PPO at full width (E=4096, hidden 1024-1024-512, nsteps 8,
-     5 epochs x 4 minibatches): 1 warm-up iteration through PPO.run and 3
-     timed iterations through PPO.rollout_phase / update_phase;
-     env-steps/s, rollout ms, update ms; finite losses and observations;
+     5 epochs x 4 minibatches; untimed: the cell tenant-ppo.e4096 times it):
+     1 warm-up iteration through PPO.run and 3 through
+     PPO.rollout_phase / update_phase; finite losses and observations;
      exactly 24 B1 launches (8 steps x 3 substeps) and 24 box kernel
      launches per iteration, counted from 0 just before this phase;
   5b. TenAnt + PPO at full width on the array engine (sim.fused_kernel
      false): 1 warm-up iteration through PPO.run and 1 timed; finite
-     metrics and no B1 launch; then one TenAnt step_batch with
+     metrics and no B1 or box launch; then one TenAnt step_batch with
      contact beta None on the kernel path: 3 B1 launches, all of them of
      the legacy branch, and every env finite or reset;
   5c. OneAnt + PPO (E=4096, PPOConfig()): 1 warm-up iteration through
-     PPO.run and 2 timed; 24 B1 launches each (with sensor outputs, one
-     ant per env), finite observations of width 60;
+     PPO.run and 2 timed; 24 B1 and 24 box launches each (with sensor
+     outputs, one ant per env), finite observations of width 60;
   5d. the slice's path through the CLI: cli.train.main(--task TenAnt
      --algo ppo --randomize --num_envs 4096 --max_iterations 3) with the
      env and PPO configured from cfg/ (a temporary --cfg_env copy of
@@ -146,10 +152,11 @@ Phases; any failure raises and the script exits non-zero:
      value finite, every trainer and env on the card;
   6. TenAnt + MAPPO at full width (MarlConfig(): N=10, hidden 512, 3 fused
      blocks per tower, episode_length 8, 5 epochs, E=4096, the sequential
-     schedule): 1 warm-up iteration through MarlRunner.run and 3 timed
-     iterations through rollout_phase / update_phase; env-steps/s, rollout
-     ms, update ms, peak memory; finite metrics; exactly 24 B1, 300 B2 and
-     300 B3 launches per iteration, counted from 0 just before this phase;
+     schedule; untimed: the cell tenant-mappo.e4096 times it): 1 warm-up
+     iteration through MarlRunner.run, then the update graph's capture and
+     two replays; finite metrics; exactly 24 B1, 300 B2 and 300 B3 host
+     launches per eager or capturing iteration (24, 0, 0 a replay), counted
+     from 0 just before this phase; graphed against eager, bit for bit;
      then one iteration of the stacked schedule (30 B2, 30 B3) and one of
      HAPPO (360 B2, 300 B3), checked the same way; then MAPPO with
      FUSED_TOWER=1 (1 warm-up iteration through MarlRunner.run, 1 timed:
@@ -159,15 +166,15 @@ Phases; any failure raises and the script exits non-zero:
      gradients and line searches ran them, inside the range the code
      allows; and one HATRPO iteration with FUSED_TOWER=1 (30 B2 from the
      linearizations, no B3, B4/B5 as counted);
-  7. one PPO, one PPO --randomize (the CLI's trainer), one PPO array-path,
-     one TRPO, one SAC and one TD3 training iteration (E=128), one OneAnt
-     PPO, one MAT, one MADDPG training iteration (E=128), one recurrent
-     MAPPO, one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1 iteration
-     under torch.profiler: device time by kernel group, the
-     device's busy share (full lists in build/), and for both PPO runs a
-     host-clock breakdown of one rollout step into its parts; it raises if
-     B2's group (MAPPO, HATRPO) or B4's (FUSED_TOWER=1) shows no device time
-     in an iteration that launched it;
+  7. one PPO --randomize (the CLI's trainer), one PPO array-path, one
+     TRPO, one SAC and one TD3 training iteration (E=128), one OneAnt PPO,
+     one MAT, one MADDPG training iteration (E=128), one recurrent MAPPO,
+     one MAPPO, one HATRPO and one MAPPO FUSED_TOWER=1 iteration read by
+     port_bench.trace: busy share, device time by kernel group, idle gaps
+     (full lists in build/), and for both PPO runs on B1 a host-clock
+     breakdown of one rollout step into its parts; it raises if B2's group
+     (MAPPO, HATRPO) or B4's (FUSED_TOWER=1) shows no device time in an
+     iteration that launched it;
   8. data parallelism (parallel/mesh.py) on TenAnt + PPO and + MAPPO at
      full width, E=4096, 2 iterations each, every launch count exact (24
      B1; 24 B1, 300 B2, 300 B3 per iteration and rank).  8a, one process:
@@ -189,16 +196,17 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import threading
 import time
 
+from port_bench import harness, peaks, trace
+from port_bench.roofline import b1 as b1_roof
+from port_bench.roofline import fused_mlp as mlp_roof
+
 E, A = 4096, 10                 # the benchmark's env count; ants per TenAnt env
+PROFILES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")  # phase 7's lists
 KERNEL_REPS, PLAIN_REPS = 30, 5
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-FP32_OPS_PER_S = 67e12          # H100 SXM FP32 outside the tensor cores
-BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 MLP_B = 8 * 4096                # episode_length x E rows per agent in the MARL update
 MLP_SHAPES = (("actor layer 0", 128, 512, False), ("hidden", 512, 512, False),
               ("critic layer 0", 512, 512, True))   # (name, Din, H, share obs)
@@ -217,18 +225,6 @@ TOWER_H, TOWER_L = 512, 3
 TOWER_TOL = {"y": 3e-3, "dx": 1e-2, "sum": 3e-3}
 TOL = {"qpos": (2e-4, 2e-4), "qvel": (5e-3, 5e-3), "wrench": (5e-3, 5e-2),
        "sensors": (5e-3, 5e-2)}
-# elementwise arithmetic and comparison ops counted as operations when the
-# plain version runs under the op counter
-ARITH_OPS = {"add", "sub", "rsub", "mul", "div", "reciprocal", "neg", "sqrt", "sin", "cos",
-             "abs", "sign", "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "where",
-             "gt", "lt", "ge", "le", "eq", "ne", "logical_and", "logical_or", "logical_not",
-             "bitwise_and", "bitwise_or", "bitwise_not", "_to_copy"}
-
-
-def smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def make_states(env, n_env, seed, device):
@@ -285,32 +281,17 @@ def time_cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
-PASS_GROUPS = (("row pass", ("ln_bwd_rows_wgmma", "tower_bwd_wgmma")),
-               ("dW pass", ("dw_wgmma", "reduce_dw_kernel")),
-               ("partial-sum reductions", ("colsum_partial_kernel", "colsum_final_kernel")))
-
-
 def pass_split(fn, reps=3):
-    """Device ms per call of each pass of a backward kernel (B3 or B5), from
-    a short torch.profiler window of `reps` calls after one warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device ms per call of each pass of a backward kernel (B3 or B5): its
+    row pass, dW pass and partial-sum reductions, port_bench.trace's kernel
+    groups, over `reps` calls after one warm-up call."""
+    from massive_marl_tpu_torch.utils import profiling
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {g: 0.0 for g, _ in PASS_GROUPS}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            g = next((g for g, keys in PASS_GROUPS if any(k in ev.name for k in keys)), None)
-            if g is None:
-                raise AssertionError(f"pass_split: unexpected kernel {ev.name}")
-            split[g] += ev.time_range.elapsed_us() / 1e3 / reps
-    if not all(split.values()):
-        raise AssertionError(f"pass_split: a pass did not run on the card: {split}")
+    tr = trace.profile_iterations(fn, reps, profiling.PREFIX)
+    split = {g: 1e3 * t / reps for g, t in tr.breakdown()["device_ops"]}
+    if len(split) != 3 or "other" in split or not all(split.values()):
+        raise AssertionError(f"pass_split: not a row pass, a dW pass and the partial sums "
+                             f"on the card: {split}")
     return split
 
 
@@ -374,15 +355,24 @@ def compare_outputs(triples, has_box, label, finite_only=True):
     return worst
 
 
+def roof_ms(nbytes, fp32_ops, bf16_ops=0):
+    """(least ms, "bytes" | "operations") of work that moves nbytes through
+    device memory and runs fp32_ops outside the tensor cores and bf16_ops
+    on them, at port_bench.peaks' rates."""
+    bytes_ms = nbytes / peaks.HBM_BYTES_PER_S * 1e3
+    ops_ms = (bf16_ops / peaks.BF16_OPS_PER_S + fp32_ops / peaks.FP32_OPS_PER_S) * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def substep_bound(per_art, n_art, n_box, table_numel, n_out, n_dr=0):
-    """(bound ms, "bytes" | "operations", bytes) of one substep launch:
-    state, torques, box state (and the n_dr DR fields) read once, outputs
-    written once; the articulations' operations at the FP32 rate."""
+    """(bound ms, "bytes" | "operations", bytes) of one launch of a substep
+    variant that port_bench.roofline.b1 does not bound (B1's legacy branch,
+    B1-DR, B6): state, torques, box state (and the n_dr DR fields) read
+    once, outputs written once; the articulations' operations at the FP32
+    rate."""
     nbytes = 4 * (n_art * (15 + 14 + 8 + n_dr) + n_box * (7 + 6) + table_numel
                   + n_art * n_out)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = per_art * n_art / FP32_OPS_PER_S * 1e3
-    return (ops_ms, "operations", nbytes) if ops_ms >= bytes_ms else (bytes_ms, "bytes", nbytes)
+    return roof_ms(nbytes, per_art * n_art) + (nbytes,)
 
 
 def fmt_bound(bound_ms, by) -> str:
@@ -408,7 +398,7 @@ def count_ops(fn, *args) -> int:
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__
             if isinstance(out, torch.Tensor):
-                if name in ARITH_OPS:
+                if name in b1_roof.ARITH_OPS:
                     Counter.n += out.numel()
                 elif name == "sum":
                     Counter.n += args[0].numel() - out.numel()
@@ -511,15 +501,12 @@ def box_kernel_phase(fs, root, dev):
                                                 wrench.reshape(6, E, A).sum(-1).t(), h),
                             PLAIN_REPS, warmup=1)
     table = fs.box_substep_kernel.table(env.spec, h, dev)
-    bytes_moved = 4 * (6 * E * A + 2 * E * (7 + 6) + table.numel())
+    nbytes = 4 * (6 * E * A + 2 * E * (7 + 6) + table.numel())
     per_env = box_ops_per_env(env)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = per_env * E / FP32_OPS_PER_S * 1e3
-    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    bound_ms, bound_by = roof_ms(nbytes, per_env * E)
     print(f"  kernel {kernel_ms:.4f} ms (median of {KERNEL_REPS}), plain {plain_ms:.2f} ms "
-          f"(median of {PLAIN_REPS}); {fmt_bound(bound_ms, bound_by)}: "
-          f"{bytes_moved / 1e6:.3f} MB -> {bytes_ms:.5f} ms, "
-          f"{per_env:.0f} ops/env x {E} -> {ops_ms:.5f} ms")
+          f"(median of {PLAIN_REPS}); {fmt_bound(bound_ms, bound_by)} ({nbytes / 1e6:.3f} MB, "
+          f"{per_env:.0f} ops/env)")
     return {"err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms, "bound": bound_ms,
             "by": bound_by}
 
@@ -750,13 +737,8 @@ def cli_dr_phase(fs, root, dev):
               f"update {1e3 * upd_s:.1f} ms; rew/step {m['mean_reward']:.3f}, vloss "
               f"{m['mean_value_loss']:.3f}, surr {m['mean_surrogate_loss']:.4f}, "
               f"B1-DR launches {n_dr}, other B1 {n - n_dr}")
-    timed_rows = rows[1:]
-    sps = statistics.median(ppo.cfg.nsteps * E / (r + u) for _, r, u, _, _ in timed_rows)
-    print(f"TenAnt+PPO --randomize through the CLI, E={E}: {sps:.1f} env-steps/s (median of "
-          f"{len(timed_rows)} after the warm-up), rollout "
-          f"{1e3 * statistics.median(r for _, r, _, _, _ in timed_rows):.1f} ms, update "
-          f"{1e3 * statistics.median(u for _, _, u, _, _ in timed_rows):.1f} ms; main() "
-          f"{wall:.1f} s in all")
+    print_rate("TenAnt+PPO --randomize through the CLI", ppo.cfg.nsteps * E,
+               [(r, u) for _, r, u, _, _ in rows[1:]], f"; main() {wall:.1f} s in all")
     d = ppo.state.env_state.pipeline.dr
     redrawn = (d.damping != snap["damping"]).flatten(1).any(1)
     if not torch.equal(d.mass, snap["mass"]) or int(redrawn.sum()) < 1:
@@ -1629,7 +1611,8 @@ def other_algos_phase(fs, fm, root, dev):
 
 
 def check_ppo(ppo, it, m, launches, want, width):
-    """Finite metrics and observations of width `width`; B1 launches."""
+    """Finite metrics and observations of width `width`; B1 and box-kernel
+    launches (pairs)."""
     import torch
     obs = ppo.state.env_state.obs
     if tuple(obs.shape) != (E, width) or not torch.isfinite(obs).all():
@@ -1637,40 +1620,45 @@ def check_ppo(ppo, it, m, launches, want, width):
     if not all(math.isfinite(v) for v in m.values()):
         raise AssertionError(f"iteration {it}: non-finite metrics {m}")
     if launches != want:
-        raise AssertionError(f"iteration {it}: {launches} B1 launches, expected {want}")
-    print(f"  rew/step {m['mean_reward']:.3f}, vloss {m['mean_value_loss']:.3f}, "
-          f"surr {m['mean_surrogate_loss']:.4f}, lr {m['lr']:.2e}, B1 launches {launches}")
+        raise AssertionError(f"iteration {it}: B1 and box kernel launches {launches}, "
+                             f"expected {want}")
+    print(f" rew/step {m['mean_reward']:.3f}, vloss {m['mean_value_loss']:.3f}, "
+          f"surr {m['mean_surrogate_loss']:.4f}, lr {m['lr']:.2e}, launches B1/box {launches}")
 
 
-def ppo_phase(env, label, timed, want, width, dev):
+def ppo_phase(env, label, iters, want, width, dev):
     """PPO at E envs on `env`: 1 warm-up iteration through PPO.run, then
-    `timed` iterations; B1 launches counted from 0 and checked against
-    `want` per iteration.  Returns the trainer."""
-    import torch
+    `iters` through PPO.rollout_phase / update_phase; B1 and box-kernel
+    launches counted from 0 and checked against `want` (B1, box) per
+    iteration.  Returns the trainer and each of the `iters` iterations'
+    (rollout s, update s)."""
     from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
     from massive_marl_tpu_torch.ops import fused_substep as fs
     ppo = PPO(env, E, PPOConfig(), seed=0, device=dev, print_log=False)
     ppo.init_state()
-    fs.substep_kernel.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    counters = (fs.substep_kernel, fs.box_substep_kernel)
+    counts = lambda: tuple(k.launches for k in counters)
+    for k in counters:
+        k.launches = 0
     ppo.run(1)
-    torch.cuda.synchronize()
-    print(f"  {label} it 0 (warm-up, PPO.run): {1e3 * (time.perf_counter() - t0):.1f} ms;", end="")
-    check_ppo(ppo, 0, ppo.last_metrics, fs.substep_kernel.launches, want, width)
+    print(f"  {label} it 0 (warm-up, PPO.run):", end="")
+    check_ppo(ppo, 0, ppo.last_metrics, counts(), want, width)
     rows = []
-    for it in range(1, 1 + timed):
-        n0 = fs.substep_kernel.launches
+    for it in range(1, 1 + iters):
+        before = counts()
         m, roll_s, upd_s = timed_iteration(ppo)
         rows.append((roll_s, upd_s))
-        print(f"  {label} it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms;",
-              end="")
-        check_ppo(ppo, it, m, fs.substep_kernel.launches - n0, want, width)
-    sps = statistics.median(ppo.cfg.nsteps * E / (r + u) for r, u in rows)
-    print(f"{label} E={E}: {sps:.1f} env-steps/s (median of {timed}), rollout "
-          f"{1e3 * statistics.median(r for r, _ in rows):.1f} ms, update "
-          f"{1e3 * statistics.median(u for _, u in rows):.1f} ms")
-    return ppo
+        print(f"  {label} it {it}:", end="")
+        check_ppo(ppo, it, m, tuple(b - a for a, b in zip(before, counts())), want, width)
+    return ppo, rows
+
+
+def print_rate(label, steps, rows, note=""):
+    """Median env-steps/s, rollout and update ms of iterations of `steps`
+    env-steps each; rows: (rollout s, update s) per iteration."""
+    print(f"{label} E={E}: {statistics.median(steps / (r + u) for r, u in rows):.1f} env-steps/s "
+          f"(median of {len(rows)}), rollout {1e3 * statistics.median(r for r, _ in rows):.1f} "
+          f"ms, update {1e3 * statistics.median(u for _, u in rows):.1f} ms{note}")
 
 
 def legacy_step_check(fs, dev):
@@ -1730,28 +1718,6 @@ def mlp_fwd(fm, d, plain=False):
 def mlp_bwd(fm, d, a, plain=False):
     f = fm.bwd_plain if plain else fm.bwd_kernel
     return f(d["dy"], a, d["x"], d["w16"], d["g"], d["g0"], d["b0"])
-
-
-def mlp_bound(kind, N, Din, H, shared):
-    """(bound ms, "bytes" | "operations", bytes, tensor-core flops) of B2
-    ("fwd") or B3 ("bwd") on [N, MLP_B] rows: each input read once, each
-    output written once; the products at the bf16 tensor-core rate plus the
-    elementwise work (counted from the kernels' code: 2 ops per input
-    column, 12 per hidden column forward, 20 backward) at the FP32 rate."""
-    B = MLP_B
-    x_bytes = (1 if shared else N) * B * Din * 2
-    vec_bytes = N * (3 * H + 2 * Din) * 4
-    if kind == "fwd":
-        nbytes = x_bytes + N * Din * H * 2 + vec_bytes + 2 * N * B * H * 2
-        mm, ew = 2 * N * B * Din * H, N * B * (2 * Din + 12 * H)
-    else:
-        nbytes = (2 * N * B * H * 2 + x_bytes + N * Din * H * 2 + N * (H + 2 * Din) * 4
-                  + N * B * Din * 2 + N * Din * H * 4 + vec_bytes)
-        mm, ew = 4 * N * B * Din * H, N * B * (6 * Din + 20 * H)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (mm / BF16_OPS_PER_S + ew / FP32_OPS_PER_S) * 1e3
-    return (ops_ms, "operations", nbytes, mm) if ops_ms >= bytes_ms else \
-        (bytes_ms, "bytes", nbytes, mm)
 
 
 def fwd_w_l2_bytes(fm, N, Din, H, L):
@@ -1827,12 +1793,12 @@ def mlp_phase(fm, dev):
                 "bmm": time_cuda_ms(lambda: torch.bmm(d["x"], d["w16"]), 20),
             }
             for kind in ("fwd", "bwd"):
-                row[kind + "_bound"], row[kind + "_by"], nbytes, mm = \
-                    mlp_bound(kind, N, din, h, shared)
+                bound_s, row[kind + "_by"] = mlp_roof.bound_s(
+                    mlp_roof.Call(kind, N, MLP_B, din, h, need_dx=True))
+                row[kind + "_bound"] = 1e3 * bound_s
                 print(f"  {label:22s} {'B2' if kind == 'fwd' else 'B3'} "
                       f"{row[kind]:.4f} ms (median of 20), bound {row[kind + '_bound']:.4f} ms "
-                      f"by {row[kind + '_by']} ({nbytes / 1e6:.1f} MB, {mm / 1e9:.2f} GFLOP "
-                      f"on tensor cores), plain {row[kind + '_plain']:.3f} ms")
+                      f"by {row[kind + '_by']}, plain {row[kind + '_plain']:.3f} ms")
             print(f"  {label:22s} note: bf16 torch.bmm of the product alone {row['bmm']:.4f} ms")
             dh16, xt = d["dy"], d["x"].contiguous()
             w_t = d["w16"].transpose(1, 2)
@@ -1893,7 +1859,8 @@ def tower_bound(kind, N, Din, shared, need_dx=False):
     dy too and writes dx if asked and every gradient); the products (B5:
     the forward it must recompute, since no activation is an input, and
     the dW and dx products) at the bf16 tensor-core rate plus the
-    elementwise work (as mlp_bound, per layer) at the FP32 rate."""
+    elementwise work (as port_bench.roofline.fused_mlp counts B2/B3's, per
+    layer) at the FP32 rate."""
     B, H, L = MLP_B, TOWER_H, TOWER_L
     x_bytes = (1 if shared else N) * B * Din * 2
     w_elems = N * (Din * H + (L - 1) * H * H)
@@ -1906,10 +1873,7 @@ def tower_bound(kind, N, Din, shared, need_dx=False):
         nbytes = (N * B * H * 2 + x_bytes + w_elems * 2 + vec_bytes
                   + (N * B * Din * 2 if need_dx else 0) + w_elems * 4 + vec_bytes)
         mm, ew = 3 * fwd_mm, N * B * (8 * Din + 32 * H * L)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (mm / BF16_OPS_PER_S + ew / FP32_OPS_PER_S) * 1e3
-    return (ops_ms, "operations", nbytes, mm) if ops_ms >= bytes_ms else \
-        (bytes_ms, "bytes", nbytes, mm)
+    return roof_ms(nbytes, ew, mm) + (nbytes, mm)
 
 
 def check_tower(fm, d, label):
@@ -2046,30 +2010,6 @@ def timed_iteration(trainer):
     return {k: float(v) for k, v in m.items()}, t1 - t0, t2 - t1
 
 
-# device kernels grouped by what issues them (names as the profiler reports
-# them; kernel_group takes the first group with a key in the name)
-KERNEL_GROUPS = (("B1 substep kernel", ("substep_kernel",)),
-                 ("box free-body step", ("box_body_step",)),
-                 ("B4 mlp_tower fwd", ("tower_fwd_wgmma",)),
-                 ("B5 mlp_tower bwd row pass", ("tower_bwd_wgmma",)),
-                 ("B2 dense_elu_ln fwd", ("dense_fwd_wgmma",)),
-                 ("B3 dense_elu_ln bwd row pass", ("ln_bwd_rows_wgmma",)),
-                 ("B3/B5 dW pass", ("dw_wgmma", "reduce_dw_kernel")),
-                 ("B3/B5 partial-sum reductions", ("colsum_partial_kernel", "colsum_final_kernel")),
-                 ("GEMM", ("gemm", "nvjet", "cutlass", "gemv")),
-                 ("optimizer (foreach)", ("multi_tensor_apply",)),
-                 ("reductions", ("reduce_kernel",)),
-                 ("ELU fwd/bwd", ("elu",)),
-                 ("copies and cat", ("Cat", "copy", "Memcpy")),
-                 ("other elementwise", ("elementwise", "cross_kernel", "index")))
-
-
-def kernel_group(name: str) -> str:
-    """The group of a device kernel's name: the first of KERNEL_GROUPS with a
-    key in it, else "other"."""
-    return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
-
-
 def offpolicy_iteration(trainer):
     """One training iteration of an off-policy trainer (env steps and
     gradient steps interleave): (metrics as floats, wall s, None)."""
@@ -2081,64 +2021,50 @@ def offpolicy_iteration(trainer):
     return {k: float(v) for k, v in m.items()}, time.perf_counter() - t0, None
 
 
-def profile_iteration(trainer, path, label, require=(), run=timed_iteration):
-    """One training iteration (`run`) under torch.profiler: device time by
-    kernel group and name and the device's busy share; the full list goes
-    to path.  require: (group, kernel wrapper) pairs; raises if a wrapper
-    launched in the iteration and its group shows no device time.  Returns
-    the device kernels' launches by name."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+def profile_iteration(trainer, name, label, require=(), run=timed_iteration):
+    """One training iteration (`run`) read as the benchmark reads its cells
+    (port_bench.trace): the device's busy share (the union of its
+    operations' intervals over the window), device time by kernel group and
+    the longest idle gaps; every operation and gap goes to
+    PROFILES/profile_<name>_iteration.txt.  require: (group, kernel
+    wrapper) pairs; raises if a wrapper launched in the iteration and no
+    kernel of its group shows device time.  Returns the Trace."""
+    from massive_marl_tpu_torch.utils import profiling
     before = [k.launches for _, k in require]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, roll_s, upd_s = run(trainer)
-    by_name, launches = {}, {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-            launches[ev.name] = launches.get(ev.name, 0) + 1
-    n_kernels = sum(launches.values())
-    groups = {}
-    for name, ms in by_name.items():
-        g = kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + ms
-    busy_ms = sum(by_name.values())
-    wall_ms = (roll_s + (upd_s or 0.0)) * 1e3
-    parts = "" if upd_s is None else \
-        f" (rollout {1e3 * roll_s:.3f}, update {1e3 * upd_s:.3f})"
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tr = trace.profile_iterations(lambda: run(trainer), 1, profiling.PREFIX)
+    path = os.path.join(PROFILES, f"profile_{name}_iteration.txt")
+    os.makedirs(PROFILES, exist_ok=True)
     with open(path, "w") as fh:
-        fh.write(f"{label}: wall ms {wall_ms:.3f}{parts}; device busy ms {busy_ms:.3f}; "
-                 f"kernels {n_kernels}\n")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
-            fh.write(f"{ms:12.3f} ms  {name}\n")
-    print(f"profile {label} (profiler on): wall {wall_ms:.3f} ms{parts}, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} kernel launches "
-          f"-> {path}")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:10.3f} ms  {g}")
+        fh.write(f"{label}: " + tr.summary())
+    print(f"profile {label} (profiler on): device busy {1e3 * tr.busy_s:.3f} ms of "
+          f"{1e3 * tr.window_s:.3f} ms ({100 * tr.busy_s / tr.window_s:.1f}%), {tr.launches} "
+          f"kernel launches -> {path}")
+    b = tr.breakdown()
+    for g, t in b["device_ops"]:
+        print(f"  {1e3 * t:10.3f} ms  {g}")
+    for g, t in b["idle_gaps"]:
+        print(f"  {1e3 * t:10.3f} ms  idle: {g}")
     for (g, k), n0 in zip(require, before):
-        if k.launches > n0 and not groups.get(g):
+        if k.launches > n0 and not sum(t for name, (_, t) in tr.kernels.items()
+                                       if trace.kernel_group(name) == g):
             raise AssertionError(f"profile {label}: {k.launches - n0} launches of the {g} "
                                  "kernel but no device time in its group")
-    return launches
+    return tr
 
 
 # per B2-B5 wrapper (update_graph.KERNELS), the kernel it launches once a call
 ROW_PASS = ("dense_fwd_wgmma", "ln_bwd_rows_wgmma", "tower_fwd_wgmma", "tower_bwd_wgmma")
 
 
-def profile_replay(runner, path, label, require):
+def profile_replay(runner, name, label, require):
     """profile_iteration of a MARL runner whose update is a replay of its
     update graph: raises unless it replayed and the trace holds each B2-B5
     row-pass kernel as often as the capture called its wrapper.  Returns
     those counts (B2-B5)."""
     g = runner.update_graph
     replays = g.replays
-    launches = profile_iteration(runner, path, label, require)
-    got = [sum(n for name, n in launches.items() if k in name) for k in ROW_PASS]
+    tr = profile_iteration(runner, name, label, require)
+    got = [tr.kernel_time(k)[0] for k in ROW_PASS]
     if g.replays != replays + 1 or got != g.calls:
         raise AssertionError(f"profile {label}: replays {replays} -> {g.replays}, row-pass "
                              f"kernels B2-B5 {got} in the trace, the capture's calls {g.calls}")
@@ -2330,36 +2256,23 @@ def marl_phase(dev):
 
     runner, per_iter = make(MarlConfig())
     T = runner.cfg.episode_length
-    torch.cuda.reset_peak_memory_stats()
     for k in counters:
         k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     runner.run(T * E)
-    torch.cuda.synchronize()
-    print(f"  MAPPO it 0 (warm-up, MarlRunner.run): {1e3 * (time.perf_counter() - t0):.1f} ms;",
-          end="")
+    print("  MAPPO it 0 (warm-up, MarlRunner.run):", end="")
     check(runner, 0, runner.last_metrics, counts(), per_iter)
-    rows = []
     for it in range(1, 1 + 3):      # the update graph's capture, then two replays
         before = counts()
-        m, roll_s, upd_s = timed_iteration(runner)
-        rows.append((roll_s, upd_s))
-        print(f"  MAPPO it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms;",
-              end="")
+        m, _, _ = timed_iteration(runner)
+        print(f"  MAPPO it {it}:", end="")
         check(runner, it, m, delta(before), per_iter if it == 1 else replay_launches(per_iter))
     main_counts = counts()
-    roll_ms = statistics.median(r for r, _ in rows) * 1e3
-    upd_ms = statistics.median(u for _, u in rows) * 1e3
-    sps = statistics.median(T * E / (r + u) for r, u in rows)
     g = runner.update_graph
     if (g.eager_updates, g.captures, g.replays, g.calls) != (1, 1, 2, list(per_iter[1:])):
         raise AssertionError(f"MAPPO update graph: eager {g.eager_updates}, captures "
                              f"{g.captures}, replays {g.replays}, B2-B5 calls a replay "
                              f"{g.calls}; expected 1, 1, 2, {list(per_iter[1:])}")
-    print(f"TenAnt+MAPPO E={E}: {sps:.1f} env-steps/s (median of 3), rollout {roll_ms:.1f} ms, "
-          f"update {upd_ms:.1f} ms, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, host launches B1-B5 "
+    print(f"TenAnt+MAPPO E={E}: host launches B1-B5 "
           f"{main_counts} over 4 iterations; update graph: {g.eager_updates} eager, "
           f"{g.captures} capture, {g.replays} replays of {g.calls} B2-B5 calls each "
           "(counted on the device in phase 7)")
@@ -2432,11 +2345,8 @@ def marl_phase(dev):
                                  f"[{lo3}, {hi3}]")
     if not all(torch.isfinite(x).all() for x in tree_leaves(trpo.state.actor_params)):
         raise AssertionError("HATRPO: non-finite actor parameters")
-    sps = statistics.median(T * E / (r + u) for r, u in rows)
-    print(f"TenAnt+HATRPO E={E}: {sps:.1f} env-steps/s (median of 2), rollout "
-          f"{1e3 * statistics.median(r for r, _ in rows):.1f} ms, update "
-          f"{1e3 * statistics.median(u for _, u in rows):.1f} ms (B2/B3 per iteration within "
-          f"[{lo2}, {hi2}] x [{lo3}, {hi3}])")
+    print_rate("TenAnt+HATRPO", T * E, rows,
+               f" (B2/B3 per iteration within [{lo2}, {hi2}] x [{lo3}, {hi3}])")
 
     # HATRPO with the whole-tower kernels: only the linearizations use B2
     os.environ["FUSED_TOWER"] = "1"
@@ -2664,20 +2574,12 @@ def p8_print_iters(label, res):
 def nccl_profile(t, mesh, label):
     """One more iteration of a mesh trainer under torch.profiler: the
     device time of the NCCL kernels and the all-reduces' bytes."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from massive_marl_tpu_torch.utils import profiling
     c0, b0 = mesh.collectives, mesh.bytes_reduced
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        timed_iteration(t)
-    ms, n = 0.0, 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and "nccl" in ev.name.lower():
-            ms += ev.time_range.elapsed_us() / 1e3
-            n += 1
+    tr = trace.profile_iterations(lambda: timed_iteration(t), 1, profiling.PREFIX)
+    n, s = tr.kernel_time("nccl")
     print(f"  {label} NCCL (profiler on, one iteration): {mesh.collectives - c0} all-reduces, "
-          f"{(mesh.bytes_reduced - b0) / 1e6:.3f} MB, {n} NCCL kernels, {ms:.3f} device ms")
+          f"{(mesh.bytes_reduced - b0) / 1e6:.3f} MB, {n} NCCL kernels, {1e3 * s:.3f} device ms")
 
 
 def phase8a(dev):
@@ -2832,7 +2734,7 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
+    from massive_marl_tpu_torch.algos.rl.ppo import PPOConfig
     from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
     from massive_marl_tpu_torch.ops import fused_mlp as fm
     from massive_marl_tpu_torch.ops import fused_substep as fs
@@ -2842,8 +2744,8 @@ def main() -> int:
 
     # ---- 1. the card
     dev = torch.device("cuda")
-    card = smi_line()
     kind = torch.cuda.get_device_name(0)
+    card = f"{kind}, {harness.power_limit()}"
     print(card)
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -2860,20 +2762,23 @@ def main() -> int:
     ops = make_states(env, E, 1, dev)
     B = E * A
     print(f"B1 vs plain at E={E} (B={B} articulations):")
-    max_err = max(check_kernel(fs, c_box, ops, "box"), check_kernel(fs, c_nobox, ops, "no-box"))
-    table = c_box.device_table(dev)
-    kernel_ms = time_cuda_ms(lambda: fs.substep_kernel(c_box, A, *ops), KERNEL_REPS)
-    plain_ms = time_cuda_ms(lambda: fs.substep_plain(c_box, A, *ops), PLAIN_REPS, warmup=1)
-    per_ant = ops_per_articulation(fs, c_box, env)
-    bytes_moved = 4 * (B * (15 + 14 + 8) + E * (7 + 6) + table.numel()
-                       + B * (15 + 14 + 6 + 24))
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = per_ant * B / FP32_OPS_PER_S * 1e3
-    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-    print(f"  kernel {kernel_ms:.4f} ms (median of {KERNEL_REPS}), plain {plain_ms:.2f} ms "
-          f"(median of {PLAIN_REPS}); {fmt_bound(bound_ms, bound_by)}: "
-          f"{bytes_moved / 1e6:.2f} MB -> {bytes_ms:.4f} ms, "
-          f"{per_ant:.0f} ops/articulation x {B} -> {ops_ms:.4f} ms")
+    b1_row = {"err": max(check_kernel(fs, c_box, ops, "box"),
+                         check_kernel(fs, c_nobox, ops, "no-box")),
+              "ms": time_cuda_ms(lambda: fs.substep_kernel(c_box, A, *ops), KERNEL_REPS),
+              "plain_ms": time_cuda_ms(lambda: fs.substep_plain(c_box, A, *ops), PLAIN_REPS,
+                                       warmup=1)}
+    # the benchmark's bound holds only while its counts are B1's own
+    per_ant, n_table = ops_per_articulation(fs, c_box, env), c_box.device_table(dev).numel()
+    if (per_ant, n_table) != (b1_roof.OPS_PER_ARTICULATION, b1_roof.TABLE_FLOATS):
+        raise AssertionError(f"B1: {per_ant} operations an articulation and a {n_table}-float "
+                             f"table; port_bench/roofline/b1.py counts "
+                             f"{b1_roof.OPS_PER_ARTICULATION} and {b1_roof.TABLE_FLOATS}")
+    bound_s, b1_row["by"] = b1_roof.bound_s(B, E)
+    b1_row["bound"] = 1e3 * bound_s
+    print(f"  kernel {b1_row['ms']:.4f} ms (median of {KERNEL_REPS}), plain "
+          f"{b1_row['plain_ms']:.2f} ms (median of {PLAIN_REPS}); "
+          f"{fmt_bound(b1_row['bound'], b1_row['by'])} (port_bench.roofline.b1; {per_ant:.0f} "
+          f"ops/articulation as the benchmark counts, a {n_table}-float table)")
     del ops
 
     # ---- 3b. B1's legacy branch and B6 vs their plain versions
@@ -2898,63 +2803,27 @@ def main() -> int:
     print(f"B4/B5 vs plain at B={MLP_B} rows per agent:")
     tower_err, tower_main = tower_phase(fm, dev)
 
-    # ---- 5. TenAnt + PPO at full width
+    # ---- 5. TenAnt + PPO at full width (the benchmark's tenant-ppo.e4096 times it)
     env = TenAntEnv(device=dev, seed=0)
-    ppo = PPO(env, E, PPOConfig(), seed=0, device=dev, print_log=False)
-    ppo.init_state()
-    torch.cuda.reset_peak_memory_stats()
-    fs.substep_kernel.launches = 0
-    fs.box_substep_kernel.launches = 0
-    per_iter = ppo.cfg.nsteps * env.spec.substeps
-
-    def check(it, m, n, n_box):
-        obs = ppo.state.env_state.obs
-        if tuple(obs.shape) != (E, 388) or not torch.isfinite(obs).all():
-            raise AssertionError(f"iteration {it}: bad observations {tuple(obs.shape)}")
-        if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"iteration {it}: non-finite metrics {m}")
-        if n != per_iter or n_box != per_iter:
-            raise AssertionError(f"iteration {it}: {n} B1 and {n_box} box kernel launches, "
-                                 f"expected {per_iter} each")
-        print(f"  rew/step {m['mean_reward']:.3f}, vloss {m['mean_value_loss']:.3f}, "
-              f"surr {m['mean_surrogate_loss']:.4f}, lr {m['lr']:.2e}, launches {n} B1, "
-              f"{n_box} box")
-
-    # warm-up: one iteration through the trainer's own entry point
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ppo.run(1)
-    torch.cuda.synchronize()
-    print(f"  it 0 (warm-up, PPO.run): {1e3 * (time.perf_counter() - t0):.1f} ms;", end="")
-    check(0, ppo.last_metrics, fs.substep_kernel.launches, fs.box_substep_kernel.launches)
-    rows = []
-    for it in range(1, 1 + 3):
-        n0, nb0 = fs.substep_kernel.launches, fs.box_substep_kernel.launches
-        m, roll_s, upd_s = timed_iteration(ppo)
-        rows.append((roll_s, upd_s))
-        print(f"  it {it}: rollout {1e3 * roll_s:.1f} ms, update {1e3 * upd_s:.1f} ms;", end="")
-        check(it, m, fs.substep_kernel.launches - n0, fs.box_substep_kernel.launches - nb0)
-    box_launches = fs.box_substep_kernel.launches
-    ppo_launches = fs.substep_kernel.launches
-    roll_ms = statistics.median(r for r, _ in rows) * 1e3
-    upd_ms = statistics.median(u for _, u in rows) * 1e3
-    sps = statistics.median(ppo.cfg.nsteps * E / (r + u) for r, u in rows)
-    print(f"TenAnt+PPO E={E}: {sps:.1f} env-steps/s (median of 3), rollout {roll_ms:.1f} ms, "
-          f"update {upd_ms:.1f} ms, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"kernel launches {ppo_launches} over 4 iterations")
+    per_iter = PPOConfig().nsteps * env.spec.substeps
+    print("TenAnt+PPO (kernel path):")
+    ppo, _ = ppo_phase(env, "TenAnt+PPO", 3, (per_iter, per_iter), 388, dev)
+    ppo_launches, box_launches = fs.substep_kernel.launches, fs.box_substep_kernel.launches
 
     # ---- 5b. TenAnt + PPO on the array engine; one legacy step on the kernel
     print("TenAnt+PPO on the array engine (sim.fused_kernel false):")
-    ppo_arr = ppo_phase(TenAntEnv({"sim": {"fused_kernel": False}}, device=dev, seed=0),
-                        "TenAnt+PPO array path", 1, 0, 388, dev)
+    ppo_arr, rows = ppo_phase(TenAntEnv({"sim": {"fused_kernel": False}}, device=dev, seed=0),
+                              "TenAnt+PPO array path", 1, (0, 0), 388, dev)
+    print_rate("TenAnt+PPO array path", ppo_arr.cfg.nsteps * E, rows)
     legacy_step_check(fs, dev)
     torch.cuda.empty_cache()
 
     # ---- 5c. OneAnt + PPO
     from massive_marl_tpu_torch.envs.one_ant import OneAntEnv
     print("OneAnt+PPO (kernel path, sensors):")
-    ppo_one = ppo_phase(OneAntEnv(device=dev, seed=0), "OneAnt+PPO", 2, per_iter, 60, dev)
+    ppo_one, rows = ppo_phase(OneAntEnv(device=dev, seed=0), "OneAnt+PPO", 2,
+                              (per_iter, per_iter), 60, dev)
+    print_rate("OneAnt+PPO", ppo_one.cfg.nsteps * E, rows)
     torch.cuda.empty_cache()
 
     # ---- 5d. the slice's path: TenAnt + PPO with domain randomization through the CLI
@@ -2984,46 +2853,36 @@ def main() -> int:
     # ---- 6. TenAnt + MAPPO (then stacked, HAPPO, FUSED_TOWER=1, HATRPO) at full width
     marl_counts, tower_counts, (runner, tower, trpo) = marl_phase(dev)
 
-    # ---- 7. where the time goes
-    profile_iteration(ppo, os.path.join(root, "build", "profile_iteration.txt"), "PPO")
+    # ---- 7. where the time goes (port_bench.run --trace 1 reads the two cells)
     rollout_step_parts(ppo)
     del ppo
-    profile_iteration(ppo_dr, os.path.join(root, "build", "profile_dr_iteration.txt"),
-                      "PPO --randomize (CLI)")
+    profile_iteration(ppo_dr, "dr", "PPO --randomize (CLI)")
     rollout_step_parts(ppo_dr)
     del ppo_dr
-    profile_iteration(ppo_arr, os.path.join(root, "build", "profile_array_iteration.txt"),
-                      "PPO array path")
+    profile_iteration(ppo_arr, "array", "PPO array path")
     sarl_trpo, sac, td3 = sarl
     del sarl
-    profile_iteration(sarl_trpo, os.path.join(root, "build", "profile_trpo_iteration.txt"),
-                      "TRPO")
+    profile_iteration(sarl_trpo, "trpo", "TRPO")
     for name, t in (("SAC", sac), ("TD3", td3)):
-        profile_iteration(t, os.path.join(root, "build", f"profile_{name.lower()}_iteration.txt"),
-                          f"{name} training iteration (E={t.num_envs})", run=offpolicy_iteration)
+        profile_iteration(t, name.lower(), f"{name} training iteration (E={t.num_envs})",
+                          run=offpolicy_iteration)
     del sarl_trpo, sac, td3, t
-    profile_iteration(ppo_one, os.path.join(root, "build", "profile_one_ant_iteration.txt"),
-                      "OneAnt PPO")
+    profile_iteration(ppo_one, "one_ant", "OneAnt PPO")
     del ppo_arr, ppo_one
     mat, maddpg, rnn_mappo = zoo
     del zoo
-    profile_iteration(mat, os.path.join(root, "build", "profile_mat_iteration.txt"), "MAT")
-    profile_iteration(maddpg, os.path.join(root, "build", "profile_maddpg_iteration.txt"),
-                      f"MADDPG training iteration (E={maddpg.num_envs})", run=offpolicy_iteration)
-    profile_iteration(rnn_mappo, os.path.join(root, "build", "profile_rnn_mappo_iteration.txt"),
-                      "recurrent MAPPO")
+    profile_iteration(mat, "mat", "MAT")
+    profile_iteration(maddpg, "maddpg", f"MADDPG training iteration (E={maddpg.num_envs})",
+                      run=offpolicy_iteration)
+    profile_iteration(rnn_mappo, "rnn_mappo", "recurrent MAPPO")
     del mat, maddpg, rnn_mappo
     b2_req = (("B2 dense_elu_ln fwd", fm.fwd_kernel),)
-    marl_replay = profile_replay(runner, os.path.join(root, "build",
-                                                      "profile_mappo_iteration.txt"),
-                                 "MAPPO", b2_req)
-    profile_iteration(trpo, os.path.join(root, "build", "profile_hatrpo_iteration.txt"),
-                      "HATRPO", b2_req)
+    marl_replay = profile_replay(runner, "mappo", "MAPPO", b2_req)
+    profile_iteration(trpo, "hatrpo", "HATRPO", b2_req)
     os.environ["FUSED_TOWER"] = "1"
     try:
-        tower_replay = profile_replay(
-            tower, os.path.join(root, "build", "profile_mappo_tower_iteration.txt"),
-            "MAPPO FUSED_TOWER=1", (("B4 mlp_tower fwd", fm.tower_fwd_kernel),))
+        tower_replay = profile_replay(tower, "mappo_tower", "MAPPO FUSED_TOWER=1",
+                                      (("B4 mlp_tower fwd", fm.tower_fwd_kernel),))
     finally:
         os.environ.pop("FUSED_TOWER")
     del runner, tower, trpo
@@ -3042,45 +2901,31 @@ def main() -> int:
     # phase 6) and the row-pass kernels of the replay traced in phase 7
     mlp_launches = [h + r for h, r in zip(marl_counts[1:], marl_replay)]
     tower_launches = [h + r for h, r in zip(tower_counts[1:], tower_replay)]
-    mlp_entry = lambda name, kind, n, src, line, err, main: {
+    entry = lambda name, src, replaces, n, row: {
         "name": name, "route": "cuda", "source": f"massive_marl_tpu_torch/ops/csrc/{src}",
-        "replaces": f"massive_marl_tpu/ops/fused_mlp.py:{line}",
-        "launches": n, "max_abs_err": err[kind], "ms": main[kind],
-        "plain_ms": main[kind + "_plain"], "bound_ms": main[kind + "_bound"],
-        "bound_by": main[kind + "_by"], "library_ms": None}
+        "replaces": replaces, "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound"], "bound_by": row["by"],
+        "library_ms": None}
+    pick = lambda err, main, kind: {"err": err[kind], "ms": main[kind],
+                                    "plain_ms": main[kind + "_plain"],
+                                    "bound": main[kind + "_bound"], "by": main[kind + "_by"]}
+    jax_mlp = "massive_marl_tpu/ops/fused_mlp.py:"
     print(json.dumps({"kernels": [
-        {"name": "ant_substep", "route": "cuda",
-         "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
-         "replaces": "massive_marl_tpu/ops/fused_substep.py:114",
-         "launches": ppo_launches, "max_abs_err": max_err,
-         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": None},
-        {"name": "ant_substep_dr", "route": "cuda",
-         "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
-         "replaces": "massive_marl_tpu/ops/fused_substep.py:114",
-         "launches": dr_launches, "max_abs_err": dr_row["err"],
-         "ms": dr_row["ms"], "plain_ms": dr_row["plain_ms"], "bound_ms": dr_row["bound"],
-         "bound_by": dr_row["by"], "library_ms": None},
-        mlp_entry("dense_elu_ln_fwd", "fwd", mlp_launches[0], "fused_mlp.cu", 46, mlp_err,
-                  mlp_main),
-        mlp_entry("dense_elu_ln_bwd", "bwd", mlp_launches[1], "fused_mlp.cu", 66, mlp_err,
-                  mlp_main),
-        mlp_entry("mlp_tower_fwd", "fwd", tower_launches[2], "fused_tower.cu", 265, tower_err,
-                  tower_main),
-        mlp_entry("mlp_tower_bwd", "bwd", tower_launches[3], "fused_tower.cu", 288, tower_err,
-                  tower_main),
-        {"name": "box_substep", "route": "cuda",
-         "source": "massive_marl_tpu_torch/ops/csrc/substep.cu", "replaces": None,
-         "launches": box_launches, "max_abs_err": box_row["err"], "ms": box_row["ms"],
-         "plain_ms": box_row["plain_ms"], "bound_ms": box_row["bound"],
-         "bound_by": box_row["by"], "library_ms": None},
-        {"name": "debug_substep", "route": "cuda",
-         "source": "massive_marl_tpu_torch/ops/csrc/substep.cu",
-         "replaces": "scripts/debug_fused_tpu.py:134",
-         "launches": b6_launches, "max_abs_err": b6_row["err"],
-         "ms": b6_row[1024]["ms"], "plain_ms": b6_row[1024]["plain_ms"],
-         "bound_ms": b6_row[1024]["bound"], "bound_by": b6_row[1024]["by"],
-         "library_ms": None}]}))
+        entry("ant_substep", "substep.cu", "massive_marl_tpu/ops/fused_substep.py:114",
+              ppo_launches, b1_row),
+        entry("ant_substep_dr", "substep.cu", "massive_marl_tpu/ops/fused_substep.py:114",
+              dr_launches, dr_row),
+        entry("dense_elu_ln_fwd", "fused_mlp.cu", jax_mlp + "46", mlp_launches[0],
+              pick(mlp_err, mlp_main, "fwd")),
+        entry("dense_elu_ln_bwd", "fused_mlp.cu", jax_mlp + "66", mlp_launches[1],
+              pick(mlp_err, mlp_main, "bwd")),
+        entry("mlp_tower_fwd", "fused_tower.cu", jax_mlp + "265", tower_launches[2],
+              pick(tower_err, tower_main, "fwd")),
+        entry("mlp_tower_bwd", "fused_tower.cu", jax_mlp + "288", tower_launches[3],
+              pick(tower_err, tower_main, "bwd")),
+        entry("box_substep", "substep.cu", None, box_launches, box_row),
+        entry("debug_substep", "substep.cu", "scripts/debug_fused_tpu.py:134", b6_launches,
+              dict(b6_row[1024], err=b6_row["err"]))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -87,6 +87,7 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos.marl import fused_nets, nets
+from massive_marl_tpu_torch.algos.marl.nets import _lead
 from massive_marl_tpu_torch.algos.marl.update_graph import UpdateGraph
 from massive_marl_tpu_torch.algos.nets import f32_weight_grads, round_bf16
 from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
@@ -235,11 +236,6 @@ class MarlConfig:
         if self.use_popart:
             return "popart"
         return "valuenorm" if self.use_valuenorm else "none"
-
-
-def _lead(v, x):
-    """[n] -> broadcastable against x [n, ...]."""
-    return v.reshape(v.shape + (1,) * (x.dim() - v.dim()))
 
 
 def _foreach_div_scalar(xs, s):

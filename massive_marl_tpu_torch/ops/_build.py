@@ -3,10 +3,12 @@
 Each source is compiled by `nvcc` into a shared library with a plain C
 interface under `<repo>/build/kernels/`, named by a hash of the source, the
 headers of csrc/ and the flags, so an edit rebuilds and an unchanged source
-is reused.  Python loads it with ctypes.  Nothing here runs at import time.
+is reused.  `CudaLib` loads it with ctypes.  Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
+import ctypes
 import glob
 import hashlib
 import os
@@ -73,3 +75,23 @@ def build(source: str) -> BuildResult:
         fh.write(log)
     os.replace(tmp, out)
     return BuildResult(out, log, seconds)
+
+
+class CudaLib:
+    """ctypes binding of one csrc/ source, built and loaded at first use.
+    signatures: {function: (argtypes, restype)}."""
+
+    def __init__(self, source: str, signatures: dict):
+        self.source, self.signatures = source, signatures
+        self.build_result = None
+        self._lib = None
+
+    def load(self):
+        if self._lib is None:
+            res = build(self.source)
+            lib = ctypes.CDLL(res.path)
+            for name, (argtypes, restype) in self.signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+            self._lib, self.build_result = lib, res
+        return self._lib

@@ -152,35 +152,15 @@ def tower_bwd_plain(dy, x, g0, b0, ws16, bs, gs, bes, need_dx: bool = False):
 # kernels (csrc/fused_mlp.cu)
 # ---------------------------------------------------------------------------
 
-class CudaLib:
-    """ctypes binding of one csrc/ source, built and loaded at first use.
-    signatures: {function: (argtypes, restype)}."""
-
-    def __init__(self, source: str, signatures: dict):
-        self.source, self.signatures = source, signatures
-        self.build_result = None
-        self._lib = None
-
-    def load(self):
-        if self._lib is None:
-            res = _build.build(self.source)
-            lib = ctypes.CDLL(res.path)
-            for name, (argtypes, restype) in self.signatures.items():
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, restype
-            self._lib, self.build_result = lib, res
-        return self._lib
-
-
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
-fused_mlp_lib = CudaLib("fused_mlp.cu", {
+fused_mlp_lib = _build.CudaLib("fused_mlp.cu", {
     "dense_elu_ln_fwd": ([_I] * 4 + [_LL] + [_P] * 10, _I),
     "dense_elu_ln_bwd_scratch": ([_I] * 4, _LL),
     "dense_elu_ln_bwd": ([_I] * 4 + [_LL] + [_P] * 13, _I),
     "mlp_fwd_cluster_blocks": ([], _I),
 })
-fused_tower_lib = CudaLib("fused_tower.cu", {
+fused_tower_lib = _build.CudaLib("fused_tower.cu", {
     "mlp_tower_fwd": ([_I] * 5 + [_LL] + [_P] * 3 + [_PP] * 4 + [_P] * 2, _I),
     "mlp_tower_bwd_scratch": ([_I] * 5, _LL),
     "mlp_tower_bwd": ([_I] * 5 + [_LL] + [_P] * 4 + [_PP] * 4 + [_P, _PP] + [_P] * 4, _I),

@@ -132,9 +132,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 class SubstepKernel:
     """ctypes binding of csrc/substep.cu's B1 launcher.  `launches` counts
     kernel launches (and nothing else); `legacy_launches` and `dr_launches`
-    count those of the legacy and the DR instantiations among them.  The
-    library is built and loaded at first use.  signatures: {function:
-    (argtypes, restype)} of the source's C interface."""
+    count those of the legacy and the DR instantiations among them.  `lib`,
+    the source's `_build.CudaLib`, builds and loads the library at first
+    use.  signatures: {function: (argtypes, restype)} of the source's C
+    interface."""
 
     source = "substep.cu"
     signatures = {
@@ -153,18 +154,14 @@ class SubstepKernel:
         self.launches = 0
         self.legacy_launches = 0
         self.dr_launches = 0
-        self.build_result = None
-        self._lib = None
+        self.lib = _build.CudaLib(self.source, self.signatures)
+
+    @property
+    def build_result(self):
+        return self.lib.build_result
 
     def load(self):
-        if self._lib is None:
-            res = _build.build(self.source)
-            lib = ctypes.CDLL(res.path)
-            for name, (argtypes, restype) in self.signatures.items():
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, restype
-            self._lib, self.build_result = lib, res
-        return self._lib
+        return self.lib.load()
 
     def occupancy(self) -> dict:
         """{instantiation: (resident blocks per SM, threads per block)} from

@@ -10,16 +10,15 @@ table entry to them: the argument count, each argument's kind (int, long
 long, pointer, host array of pointers) and the return type.  They need
 neither a card nor nvcc.
 
-test_profiler_groups_name_every_kernel holds `chip_smoke.KERNEL_GROUPS`,
-by which the smoke script sums device time per kernel, to the `__global__`
-kernels of csrc/: each lands in its own kernel's group, so a renamed kernel
-cannot drop out of (or into) another kernel's time.
+test_profiler_groups_name_every_kernel holds `port_bench.trace`'s kernel
+groups, by which the benchmark and the smoke script sum device time per
+kernel, to the `__global__` kernels of csrc/: each lands in the group
+mapped here, so a renamed kernel cannot drop out of (or into) another
+kernel's time.
 """
 import ctypes
 import os
 import re
-
-import sys
 
 import pytest
 
@@ -83,10 +82,12 @@ def test_signature_matches_declaration(lib, name):
     assert KINDS[restype] == ret, f"{name} returns {ret}, ctypes says {KINDS[restype]}"
 
 
-# the group each kernel's device time belongs to in chip_smoke's profiles
+# the group each kernel's device time belongs to in the benchmark's
+# breakdown (port_bench.trace.kernel_group); the box kernel has no group of
+# its own there and is filed under "other"
 KERNEL_GROUP_OF = {
     "substep_kernel": "B1 substep kernel",
-    "box_body_step": "box free-body step",
+    "box_body_step": "other",
     "dense_fwd_wgmma_kernel": "B2 dense_elu_ln fwd",
     "ln_bwd_rows_wgmma_kernel": "B3 dense_elu_ln bwd row pass",
     "tower_fwd_wgmma_kernel": "B4 mlp_tower fwd",
@@ -110,18 +111,13 @@ def _global_kernels() -> set:
 
 
 def test_profiler_groups_name_every_kernel():
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(root)
+    from port_bench.trace import kernel_group
     kernels = _global_kernels()
     assert kernels == set(KERNEL_GROUP_OF), kernels ^ set(KERNEL_GROUP_OF)
     for name in sorted(kernels):
         # the profiler names a template instance with its namespace and arguments
         shown = f"void (anonymous namespace)::{name}<4>(CUtensorMap_st, int)"
-        assert chip_smoke.kernel_group(shown) == KERNEL_GROUP_OF[name], name
+        assert kernel_group(shown) == KERNEL_GROUP_OF[name], name
     b2, b4 = "B2 dense_elu_ln fwd", "B4 mlp_tower fwd"
-    assert chip_smoke.kernel_group("tower_fwd_wgmma_kernel") != b2
-    assert chip_smoke.kernel_group("dense_fwd_wgmma_kernel") != b4
+    assert kernel_group("tower_fwd_wgmma_kernel") != b2
+    assert kernel_group("dense_fwd_wgmma_kernel") != b4
