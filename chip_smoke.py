@@ -71,7 +71,12 @@ Phases; any failure raises and the script exits non-zero:
      1 warm-up iteration through PPO.run and 3 through
      PPO.rollout_phase / update_phase; finite losses and observations;
      exactly 24 B1 launches (8 steps x 3 substeps) and 24 box kernel
-     launches per iteration, counted from 0 just before this phase;
+     launches per iteration, counted from 0 just before this phase; the
+     update graph's counters (1 eager update, 1 capture, 2 replays), and a
+     second trainer from the same seeds with the graph held off beside it,
+     the same bits after every iteration (the JSON's launch totals are the
+     graphed trainer's alone); 5b and 5c check the graph's counters the
+     same way;
   5b. TenAnt + PPO at full width on the array engine (sim.fused_kernel
      false): 1 warm-up iteration through PPO.run and 1 timed; finite
      metrics and no B1 or box launch; then one TenAnt step_batch with
@@ -1626,31 +1631,71 @@ def check_ppo(ppo, it, m, launches, want, width):
           f"surr {m['mean_surrogate_loss']:.4f}, lr {m['lr']:.2e}, launches B1/box {launches}")
 
 
-def ppo_phase(env, label, iters, want, width, dev):
+def ppo_phase(env, label, iters, want, width, dev, twin=None):
     """PPO at E envs on `env`: 1 warm-up iteration through PPO.run, then
     `iters` through PPO.rollout_phase / update_phase; B1 and box-kernel
     launches counted from 0 and checked against `want` (B1, box) per
-    iteration.  Returns the trainer and each of the `iters` iterations'
-    (rollout s, update s)."""
+    iteration; the update graph's counters: 1 eager update, then a capture
+    and `iters` - 1 replays.  twin: an env made as `env` was, for a second
+    trainer from the same seeds with its update graph held off, run beside
+    the first each iteration: every parameter, Adam moment, the step count,
+    the lr and every metric the same bits.  Returns the trainer, each of
+    the `iters` iterations' (rollout s, update s) and the (B1, box) launches
+    of the trainer's own 1 + `iters` iterations, the twin's left out."""
+    import contextlib
+    import torch
     from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
+    from massive_marl_tpu_torch.algos.rl.update_graph import state_tensors
     from massive_marl_tpu_torch.ops import fused_substep as fs
     ppo = PPO(env, E, PPOConfig(), seed=0, device=dev, print_log=False)
     ppo.init_state()
+    eager = None
+    if twin is not None:
+        eager = PPO(twin, E, PPOConfig(), seed=0, device=dev, print_log=False)
+        eager.init_state()
     counters = (fs.substep_kernel, fs.box_substep_kernel)
     counts = lambda: tuple(k.launches for k in counters)
+
+    def same(it, m, m_eager):
+        if eager is None:
+            return
+        m, m_eager = ({k: v for k, v in d.items() if k != "fps"} for d in (m, m_eager))
+        differ = [i for i, (a, b) in enumerate(zip(state_tensors(ppo), state_tensors(eager)))
+                  if not torch.equal(a, b)]
+        if differ or m != m_eager or ppo.state.opt.count != eager.state.opt.count:
+            raise AssertionError(f"{label} it {it}, graphed against eager: state leaves "
+                                 f"{differ} differ, metrics {m} / {m_eager}, counts "
+                                 f"{ppo.state.opt.count} / {eager.state.opt.count}")
+        print(f"  {label} it {it}: graphed and eager the same bits")
+
     for k in counters:
         k.launches = 0
-    ppo.run(1)
-    print(f"  {label} it 0 (warm-up, PPO.run):", end="")
-    check_ppo(ppo, 0, ppo.last_metrics, counts(), want, width)
-    rows = []
-    for it in range(1, 1 + iters):
-        before = counts()
-        m, roll_s, upd_s = timed_iteration(ppo)
-        rows.append((roll_s, upd_s))
-        print(f"  {label} it {it}:", end="")
-        check_ppo(ppo, it, m, tuple(b - a for a, b in zip(before, counts())), want, width)
-    return ppo, rows
+    with graph_held_off(eager) if eager is not None else contextlib.nullcontext():
+        ppo.run(1)
+        print(f"  {label} it 0 (warm-up, PPO.run):", end="")
+        own = counts()
+        check_ppo(ppo, 0, ppo.last_metrics, own, want, width)
+        if eager is not None:
+            eager.run(1)
+            same(0, ppo.last_metrics, eager.last_metrics)
+        rows = []
+        for it in range(1, 1 + iters):
+            before = counts()
+            m, roll_s, upd_s = timed_iteration(ppo)
+            rows.append((roll_s, upd_s))
+            print(f"  {label} it {it}:", end="")
+            delta = tuple(b - a for a, b in zip(before, counts()))
+            own = tuple(a + d for a, d in zip(own, delta))
+            check_ppo(ppo, it, m, delta, want, width)
+            if eager is not None:
+                same(it, m, timed_iteration(eager)[0])
+    g = ppo.update_graph
+    got = (g.eager_updates, g.captures, g.replays)
+    if got != (1, min(iters, 1), max(iters - 1, 0)):
+        raise AssertionError(f"{label}: update graph eager/captures/replays {got} after "
+                             f"1 + {iters} iterations")
+    print(f"  {label} update graph: {got[0]} eager, {got[1]} capture, {got[2]} replays")
+    return ppo, rows, own
 
 
 def print_rate(label, steps, rows, note=""):
@@ -2136,8 +2181,9 @@ def build_all(libs):
 
 
 def graph_held_off(runner):
-    """A context in which the MARL runner's update graph refuses every
-    update, so that each runs eagerly; unittest.mock restores it on leaving."""
+    """A context in which the MARL runner's or the PPO trainer's update
+    graph refuses every update, so that each runs eagerly; unittest.mock
+    restores it on leaving."""
     from unittest import mock
     return mock.patch.object(runner.update_graph, "refusal", lambda r, perm=None: "held off")
 
@@ -2807,13 +2853,13 @@ def main() -> int:
     env = TenAntEnv(device=dev, seed=0)
     per_iter = PPOConfig().nsteps * env.spec.substeps
     print("TenAnt+PPO (kernel path):")
-    ppo, _ = ppo_phase(env, "TenAnt+PPO", 3, (per_iter, per_iter), 388, dev)
-    ppo_launches, box_launches = fs.substep_kernel.launches, fs.box_substep_kernel.launches
+    ppo, _, (ppo_launches, box_launches) = ppo_phase(
+        env, "TenAnt+PPO", 3, (per_iter, per_iter), 388, dev, twin=TenAntEnv(device=dev, seed=0))
 
     # ---- 5b. TenAnt + PPO on the array engine; one legacy step on the kernel
     print("TenAnt+PPO on the array engine (sim.fused_kernel false):")
-    ppo_arr, rows = ppo_phase(TenAntEnv({"sim": {"fused_kernel": False}}, device=dev, seed=0),
-                              "TenAnt+PPO array path", 1, (0, 0), 388, dev)
+    ppo_arr, rows, _ = ppo_phase(TenAntEnv({"sim": {"fused_kernel": False}}, device=dev, seed=0),
+                                 "TenAnt+PPO array path", 1, (0, 0), 388, dev)
     print_rate("TenAnt+PPO array path", ppo_arr.cfg.nsteps * E, rows)
     legacy_step_check(fs, dev)
     torch.cuda.empty_cache()
@@ -2821,8 +2867,8 @@ def main() -> int:
     # ---- 5c. OneAnt + PPO
     from massive_marl_tpu_torch.envs.one_ant import OneAntEnv
     print("OneAnt+PPO (kernel path, sensors):")
-    ppo_one, rows = ppo_phase(OneAntEnv(device=dev, seed=0), "OneAnt+PPO", 2,
-                              (per_iter, per_iter), 60, dev)
+    ppo_one, rows, _ = ppo_phase(OneAntEnv(device=dev, seed=0), "OneAnt+PPO", 2,
+                                 (per_iter, per_iter), 60, dev)
     print_rate("OneAnt+PPO", ppo_one.cfg.nsteps * E, rows)
     torch.cuda.empty_cache()
 

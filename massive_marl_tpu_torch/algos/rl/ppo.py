@@ -28,9 +28,15 @@ global minibatch size, and one all-reduce per minibatch sums the gradients,
 the KL and the losses before the global-norm clip.  The logged means are
 global.
 
+On CUDA the update runs as one CUDA graph (update_graph.py, held as
+`PPO.update_graph`): eagerly once, captured on the next update and replayed
+on every later one; the CPU, a mesh and a `_loss` or `_step` overridden on
+the instance keep it eager (`PPOUpdateGraph.refusal`).
+
 The rollout, its policy steps, the update and each minibatch step's
 forward, backward and optimizer are spans of utils/profiling (recorded
-only while its recorder is on).
+only while its recorder is on); a replay of the update's graph is the span
+`update.graph`.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos import nets
+from massive_marl_tpu_torch.algos.rl.update_graph import PPOUpdateGraph
 from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
 from massive_marl_tpu_torch.utils.logging import Writer, fetch_metrics
@@ -108,13 +115,26 @@ class AdamState:
     count: int = 0
 
 
+def adam_scalars(count: int) -> tuple:
+    """The reciprocals (1 / bc1, 1 / bc2) of Adam's bias corrections of the
+    step after `count` steps, as Python floats (float64): the values of
+    `adam_update`'s `scalars`."""
+    c = count + 1
+    return 1.0 / (1.0 - 0.9 ** c), 1.0 / (1.0 - 0.999 ** c)
+
+
 def adam_update(params, grads, opt: AdamState, lr, max_grad_norm: float | None = None,
-                eps: float = 1e-8):
+                eps: float = 1e-8, scalars=None):
     """optax's chain(clip_by_global_norm(max_grad_norm), adam(lr, eps=eps))
     applied in place: the gradients scaled onto the norm ball when their
     global norm exceeds max_grad_norm (None: no clipping), then Adam (b1
     0.9, b2 0.999) with bias correction, params -= lr * update.  `lr` is a
-    float or a 0-d tensor."""
+    float or a 0-d tensor.  scalars: on CUDA, in place of the bias
+    corrections as Python floats, adam_scalars(opt.count) as float32 device
+    tensors (a CUDA graph's replays read them from a buffer the host fills,
+    update_graph.py), multiplied in.  torch's CUDA `_foreach_div` by a
+    Python float is itself the product with its float32 reciprocal, so both
+    forms give the same bits there."""
     if max_grad_norm is not None:
         g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(g_norm < max_grad_norm, torch.ones_like(g_norm),
@@ -125,10 +145,14 @@ def adam_update(params, grads, opt: AdamState, lr, max_grad_norm: float | None =
     torch._foreach_lerp_(opt.mu, grads, 1 - b1)
     torch._foreach_mul_(opt.nu, b2)
     torch._foreach_addcmul_(opt.nu, grads, grads, 1 - b2)
-    denom = torch._foreach_div(opt.nu, 1 - b2 ** opt.count)
+    if scalars is None:
+        scaled, (s1, s2) = torch._foreach_div, (1 - b1 ** opt.count, 1 - b2 ** opt.count)
+    else:
+        scaled, (s1, s2) = torch._foreach_mul, scalars
+    denom = scaled(opt.nu, s2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
-    upd = torch._foreach_div(opt.mu, 1 - b1 ** opt.count)
+    upd = scaled(opt.mu, s1)
     torch._foreach_div_(upd, denom)
     torch._foreach_mul_(upd, lr)
     with torch.no_grad():
@@ -203,6 +227,7 @@ class PPO:
             self.cfg.activation, self.cfg.init_noise_std, generator=init_gen).to(self.device)
         self.state: PPOTrainState | None = None
         self.last_metrics: Dict[str, float] = {}
+        self.update_graph = PPOUpdateGraph()
 
     # ------------------------------------------------------------------ setup
     def init_state(self) -> PPOTrainState:
@@ -280,14 +305,30 @@ class PPO:
         return loss, surrogate_loss.detach(), value_loss.detach(), kl
 
     def _step(self, grads, lr):
-        """Global-norm clip, Adam moments, p -= lr * update (in place)."""
-        adam_update(list(self.model.parameters()), grads, self.state.opt, lr,
-                    self.cfg.max_grad_norm)
+        """Global-norm clip, Adam moments, p -= lr * update (in place); while
+        the update's graph is captured, Adam's bias corrections come from
+        the buffer its replays read."""
+        opt = self.state.opt
+        adam_update(list(self.model.parameters()), grads, opt, lr, self.cfg.max_grad_norm,
+                    scalars=self.update_graph.step_scalars(opt.count))
 
     @spanned("trainer.update")
     def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor):
         """GAE and the epochs of minibatch updates on one trajectory; returns
-        the iteration's metrics (device tensors)."""
+        the iteration's metrics (device tensors).  On CUDA a replay of the
+        update's graph (update_graph.py) wherever it takes the update."""
+        if self.update_graph.refusal(self) is None:
+            metrics = self.update_graph.update(self, traj, last_obs)
+        else:
+            self.update_graph.eager_updates += 1
+            metrics = self._update(traj, last_obs)
+        self.state.iteration += 1
+        return metrics
+
+    def _update(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor):
+        """The update's body: changes the parameters, Adam's moments and
+        state.lr in place and returns the metrics; Adam's count advances on
+        the host."""
         cfg, mesh = self.cfg, self.mesh
         T, E = traj["reward"].shape
         n_mb = cfg.nminibatches
@@ -336,8 +377,7 @@ class PPO:
                     self._step(grads, lr)
                 surr.append(s_loss)
                 vals.append(v_loss)
-        self.state.lr = lr
-        self.state.iteration += 1
+        self.state.lr.copy_(lr)
         reward, done = mesh.mean([traj["reward"].mean(), traj["done"].mean()])
         return dict(mean_reward=reward,
                     mean_value_loss=torch.stack(vals).mean(),
