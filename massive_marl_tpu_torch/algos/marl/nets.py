@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from massive_marl_tpu_torch.algos.nets import f32_wgrad_on, orthogonal_
 from massive_marl_tpu_torch.algos.rl.offpolicy import init_dense
+from massive_marl_tpu_torch.utils.profiling import span
 
 EPS = 1e-6  # flax.linen.LayerNorm default epsilon
 
@@ -278,13 +279,20 @@ def _masked(h, mask):
 def gru_seq(p, x, h, mask):
     """The cell over a sequence: x [N, L, B, in], h [N, B, H] at its start,
     mask [N or 1, L, B] -> hidden states [N, L, B, H].  The input products
-    run over all L steps at once."""
-    xs = gru_inputs(p, x)
-    out = []
-    for t in range(x.shape[1]):
-        h = gru_step(p, _masked(h, mask[:, t]), *(g[:, t] for g in xs))
-        out.append(h)
-    return torch.stack(out, 1)
+    run over all L steps at once (the span gru.seq)."""
+    with span("gru.seq"):
+        xs = gru_inputs(p, x)
+        out = []
+        for t in range(x.shape[1]):
+            h = gru_step(p, _masked(h, mask[:, t]), *(g[:, t] for g in xs))
+            out.append(h)
+        return torch.stack(out, 1)
+
+
+def _gru_once(p, x, h, mask):
+    """One step of the cell from h, masked (the span gru.step)."""
+    with span("gru.step"):
+        return gru_step(p, _masked(h, mask), *gru_inputs(p, x))
 
 
 @dataclass(frozen=True)
@@ -300,8 +308,7 @@ class MarlActorRNN(MarlActor):
     def apply(self, p, obs, h, mask):
         """obs [N, ..., obs_dim], h [N, ..., H], mask [...] -> (mean, std,
         new h)."""
-        x = self.base.apply(p["MLPBase_0"], obs)
-        h = gru_step(p["GRUCell_0"], _masked(h, mask), *gru_inputs(p["GRUCell_0"], x))
+        h = _gru_once(p["GRUCell_0"], self.base.apply(p["MLPBase_0"], obs), h, mask)
         mean = dense_f32(p["Dense_0"], h)
         return mean, _vec(self.std(p), mean).expand(mean.shape), h
 
@@ -326,8 +333,7 @@ class MarlCriticRNN(MarlCritic):
     def apply(self, p, x, h, mask):
         """x [N, ..., in], h [N, ..., H], mask [...] -> (values [N, ...],
         new h)."""
-        feat = self.base.apply(p["MLPBase_0"], x)
-        h = gru_step(p["GRUCell_0"], _masked(h, mask), *gru_inputs(p["GRUCell_0"], feat))
+        h = _gru_once(p["GRUCell_0"], self.base.apply(p["MLPBase_0"], x), h, mask)
         return dense_f32(p["Dense_0"], h).squeeze(-1), h
 
     def apply_seq(self, p, x, h, mask):

@@ -26,6 +26,13 @@ chunked BPTT over `data_chunk_length`:
     their update (no trust-region step);
   * in each step the actor steps before the critic (MarlRunner._update_once,
     the same optimizer and value-target cadence as the feed-forward runner).
+The program's spans (utils/profiling; off unless the recorder is on) are
+the parent's, `trainer.rollout`, `trainer.policy` around each rollout
+step's actor, critic, sample and log-prob, `trainer.update` and
+`update.forward` / `update.backward` / `update.optimizer` in each step,
+and the GRU's: `gru.step` around each acting step of a GRU (nets.py), and
+`gru.seq` around each pass of a GRU through the chunks' steps in an
+update's forward.
 Random draws go through `_normal` (the rollout's noise, [E, N, act]),
 `_chunk_perm` and `_agent_perm`, so the tests can feed both packages the
 same numbers.  The checkpoint is the parent's file (the JAX runner's, GRU
@@ -54,6 +61,7 @@ from massive_marl_tpu_torch.algos.marl.runner import (AdamState, MarlConfig, Mar
                                                       episode_returns)
 from massive_marl_tpu_torch.envs.base import eval_generator, evaluate_episodes
 from massive_marl_tpu_torch.parallel.mesh import draw
+from massive_marl_tpu_torch.utils.profiling import span, spanned
 from massive_marl_tpu_torch.utils.tree import tree_map
 
 
@@ -133,6 +141,7 @@ class RecurrentMarlRunner(MarlRunner):
         return torch.randperm(self.N, generator=self.generator, device=self.device)
 
     # ---------------------------------------------------------------- rollout
+    @spanned("trainer.rollout")
     @torch.no_grad()
     def rollout_phase(self) -> Dict[str, torch.Tensor]:
         """episode_length steps of the GRU policies and the env step; advances
@@ -145,14 +154,15 @@ class RecurrentMarlRunner(MarlRunner):
         env_state, ah, ch = st.env_state, st.actor_h, st.critic_h
         steps = []
         for _ in range(cfg.episode_length):
-            mask = 1.0 - env_state.done.float()
-            obs_buf = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
-            obs, cin = self._agent_views(obs_buf)
-            mean, std, ah_next = self.actor.apply(st.actor_params, obs, ah, mask)   # [N,E,act]
-            actions = mean + std * self._normal((E, N, A)).transpose(0, 1)
-            logp = nets.normal_log_prob(mean, std, actions)
-            values, ch_next = self.critic.apply(st.critic_params, cin, ch, mask)
-            a_clip = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
+            with span("trainer.policy"):
+                mask = 1.0 - env_state.done.float()
+                obs_buf = torch.clamp(env_state.obs, -cfg.clip_obs, cfg.clip_obs)
+                obs, cin = self._agent_views(obs_buf)
+                mean, std, ah_next = self.actor.apply(st.actor_params, obs, ah, mask)  # [N,E,act]
+                actions = mean + std * self._normal((E, N, A)).transpose(0, 1)
+                logp = nets.normal_log_prob(mean, std, actions)
+                values, ch_next = self.critic.apply(st.critic_params, cin, ch, mask)
+                a_clip = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
             nxt = self.env.step_batch(env_state, a_clip.transpose(0, 1).reshape(E, -1))
             step = dict(obs=obs.transpose(0, 1), share=obs_buf, actions=actions.transpose(0, 1),
                         logp=logp.t(), values=values.t(), mask=mask, reward=nxt.reward,
@@ -260,6 +270,7 @@ class RecurrentMarlRunner(MarlRunner):
                 vl[-1].append(torch.cat(v_parts))
         return vn, al, vl
 
+    @spanned("trainer.update")
     def update_phase(self, traj: Dict[str, torch.Tensor], last_obs: torch.Tensor, *,
                      perm=None) -> Dict[str, torch.Tensor]:
         """GAE and the chunked-BPTT updates on one trajectory; returns the
