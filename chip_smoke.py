@@ -71,19 +71,29 @@ Phases; any failure raises and the script exits non-zero:
      1 warm-up iteration through PPO.run and 3 through
      PPO.rollout_phase / update_phase; finite losses and observations;
      exactly 24 B1 launches (8 steps x 3 substeps) and 24 box kernel
-     launches per iteration, counted from 0 just before this phase; the
-     update graph's counters (1 eager update, 1 capture, 2 replays), and a
-     second trainer from the same seeds with the graph held off beside it,
-     the same bits after every iteration (the JSON's launch totals are the
-     graphed trainer's alone); 5b and 5c check the graph's counters the
-     same way;
+     launches from the host per iteration whose rollout runs on the host
+     (eager or captured), none where it replays the rollout graph, counted
+     from 0 just before this phase; the update graph's and the rollout
+     graph's counters (1 eager, 1 capture, 2 replays each), and a second
+     trainer from the same seeds with both graphs held off beside it, the
+     same bits after every iteration (the JSON's launch totals are the
+     graphed trainer's host launches and the kernels of one more rollout
+     of that trainer, a replay traced under torch.profiler, which raises
+     unless it holds exactly 24 B1 and 24 box kernels and the host
+     launched none); 5b and 5c check the graphs' counters the same way
+     (5b's rollouts eager: the array engine's step is not declared
+     device-only); then the rollout graph at E and 4 E envs on trainers of
+     their own: the rollout's ms eagerly against replayed (host clock
+     around synchronised rollouts, medians of 10), and one replay traced
+     as above: its kernels and the device's busy time;
   5b. TenAnt + PPO at full width on the array engine (sim.fused_kernel
      false): 1 warm-up iteration through PPO.run and 1 timed; finite
      metrics and no B1 or box launch; then one TenAnt step_batch with
      contact beta None on the kernel path: 3 B1 launches, all of them of
      the legacy branch, and every env finite or reset;
   5c. OneAnt + PPO (E=4096, PPOConfig()): 1 warm-up iteration through
-     PPO.run and 2 timed; 24 B1 and 24 box launches each (with sensor
+     PPO.run and 2 timed; 24 B1 and 24 box launches from the host on the
+     eager and the capturing rollout, none on the replay (with sensor
      outputs, one ant per env), finite observations of width 60;
   5d. the slice's path through the CLI: cli.train.main(--task TenAnt
      --algo ppo --randomize --num_envs 4096 --max_iterations 3) with the
@@ -197,6 +207,7 @@ last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1634,17 +1645,21 @@ def check_ppo(ppo, it, m, launches, want, width):
 def ppo_phase(env, label, iters, want, width, dev, twin=None):
     """PPO at E envs on `env`: 1 warm-up iteration through PPO.run, then
     `iters` through PPO.rollout_phase / update_phase; B1 and box-kernel
-    launches counted from 0 and checked against `want` (B1, box) per
-    iteration; the update graph's counters: 1 eager update, then a capture
-    and `iters` - 1 replays.  twin: an env made as `env` was, for a second
-    trainer from the same seeds with its update graph held off, run beside
-    the first each iteration: every parameter, Adam moment, the step count,
-    the lr and every metric the same bits.  Returns the trainer, each of
-    the `iters` iterations' (rollout s, update s) and the (B1, box) launches
-    of the trainer's own 1 + `iters` iterations, the twin's left out."""
-    import contextlib
+    host launches counted from 0 and checked against `want` (B1, box) per
+    iteration whose rollout ran on the host (eagerly or captured), none
+    where it replayed the rollout graph; the update graph's counters: 1
+    eager update, then a capture and `iters` - 1 replays; the rollout
+    graph's the same where it takes the env's rollouts, else `iters` + 1
+    eager rollouts.  twin: an env made as `env` was, for a second trainer
+    from the same seeds with its update and rollout graphs held off, run
+    beside the first each iteration: every parameter, Adam moment, the step
+    count, the lr and every metric the same bits.  Returns the trainer,
+    each of the `iters` iterations' (rollout s, update s) and the (B1, box)
+    host launches of the trainer's own 1 + `iters` iterations, the twin's
+    left out."""
     import torch
     from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
+    from massive_marl_tpu_torch.algos.rl.rollout_graph import PPORolloutGraph
     from massive_marl_tpu_torch.algos.rl.update_graph import state_tensors
     from massive_marl_tpu_torch.ops import fused_substep as fs
     ppo = PPO(env, E, PPOConfig(), seed=0, device=dev, print_log=False)
@@ -1679,14 +1694,15 @@ def ppo_phase(env, label, iters, want, width, dev, twin=None):
             eager.run(1)
             same(0, ppo.last_metrics, eager.last_metrics)
         rows = []
+        rolls = ppo.rollout_graph
         for it in range(1, 1 + iters):
-            before = counts()
+            before, replays = counts(), rolls.replays
             m, roll_s, upd_s = timed_iteration(ppo)
             rows.append((roll_s, upd_s))
             print(f"  {label} it {it}:", end="")
             delta = tuple(b - a for a, b in zip(before, counts()))
             own = tuple(a + d for a, d in zip(own, delta))
-            check_ppo(ppo, it, m, delta, want, width)
+            check_ppo(ppo, it, m, delta, want if rolls.replays == replays else (0, 0), width)
             if eager is not None:
                 same(it, m, timed_iteration(eager)[0])
     g = ppo.update_graph
@@ -1695,7 +1711,77 @@ def ppo_phase(env, label, iters, want, width, dev, twin=None):
         raise AssertionError(f"{label}: update graph eager/captures/replays {got} after "
                              f"1 + {iters} iterations")
     print(f"  {label} update graph: {got[0]} eager, {got[1]} capture, {got[2]} replays")
+    got = (rolls.eager_rollouts, rolls.captures, rolls.replays)
+    refusal = PPORolloutGraph.refusal(ppo)
+    if got != ((1, min(iters, 1), max(iters - 1, 0)) if refusal is None else (1 + iters, 0, 0)):
+        raise AssertionError(f"{label}: rollout graph eager/captures/replays {got} after "
+                             f"1 + {iters} iterations (refusal: {refusal})")
+    print(f"  {label} rollout graph: {got[0]} eager, {got[1]} capture, {got[2]} replays"
+          + (f" ({refusal})" if refusal else ""))
     return ppo, rows, own
+
+
+def profile_rollout_replay(ppo, label):
+    """One rollout of a PPO trainer whose rollout graph takes it, under
+    torch.profiler (port_bench.trace): raises unless it replayed, the host
+    launched no B1 or box kernel, and the trace holds nsteps x substeps of
+    each.  Returns the Trace and the (B1, box) kernels in it."""
+    from massive_marl_tpu_torch.ops import fused_substep as fs
+    from massive_marl_tpu_torch.utils import profiling
+    g = ppo.rollout_graph
+    replays = g.replays
+    host = (fs.substep_kernel.launches, fs.box_substep_kernel.launches)
+    tr = trace.profile_iterations(ppo.rollout_phase, 1, profiling.PREFIX)
+    host = tuple(b - a for a, b in zip(host, (fs.substep_kernel.launches,
+                                              fs.box_substep_kernel.launches)))
+    per = ppo.cfg.nsteps * ppo.env.spec.substeps
+    got = (tr.kernel_time("substep_kernel")[0], tr.kernel_time("box_body_step")[0])
+    if g.replays != replays + 1 or host != (0, 0) or got != (per, per):
+        raise AssertionError(f"{label} rollout replay: replays {replays} -> {g.replays}, B1/box "
+                             f"host launches {host}, kernels in the trace {got} (expected "
+                             f"{per} each)")
+    return tr, got
+
+
+def rollout_graph_phase(dev, reps=10):
+    """Phase 5's rollout graph at the two PPO cells' env counts, E and 4 E:
+    TenAnt + PPO at full width, the rollout's wall time eagerly (the graph
+    held off) and replayed, on the host clock around synchronised
+    rollouts, medians of `reps` each, after one eager rollout and the
+    capture; then one replay under torch.profiler (profile_rollout_replay):
+    its kernels and the device's busy time."""
+    import torch
+    from massive_marl_tpu_torch.algos.rl.ppo import PPO, PPOConfig
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    for n_env in (E, 4 * E):
+        ppo = PPO(TenAntEnv(device=dev, seed=0), n_env, PPOConfig(), seed=0, device=dev,
+                  print_log=False)
+        ppo.init_state()
+
+        def ms():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ppo.rollout_phase()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        ms()        # the trainer's first rollout runs eagerly
+        with graph_held_off(ppo):
+            eager = [ms() for _ in range(reps)]
+        capture = ms()
+        replayed = [ms() for _ in range(reps)]
+        g = ppo.rollout_graph
+        counts = (g.eager_rollouts, g.captures, g.replays)
+        if counts != (1 + reps, 1, reps):
+            raise AssertionError(f"rollout graph at E={n_env}: eager/captures/replays {counts}")
+        tr, got = profile_rollout_replay(ppo, f"TenAnt+PPO E={n_env}")
+        print(f"PPO rollout, TenAnt E={n_env}: eager {statistics.median(eager):.3f} ms, "
+              f"replayed {statistics.median(replayed):.3f} ms (medians of {reps}; the "
+              f"capturing rollout {capture:.1f} ms); a replay runs {tr.launches} kernels "
+              f"({got[0]} B1, {got[1]} box), device busy {1e3 * tr.busy_s:.3f} of "
+              f"{1e3 * tr.window_s:.3f} ms")
+        del ppo, g
+        torch.cuda.empty_cache()
 
 
 def print_rate(label, steps, rows, note=""):
@@ -2180,12 +2266,20 @@ def build_all(libs):
                 print("  ptxas:", line.strip())
 
 
+@contextlib.contextmanager
 def graph_held_off(runner):
     """A context in which the MARL runner's or the PPO trainer's update
-    graph refuses every update, so that each runs eagerly; unittest.mock
-    restores it on leaving."""
+    graph refuses every update, and the PPO trainer's rollout graph every
+    rollout, so that each runs eagerly; unittest.mock restores them on
+    leaving."""
     from unittest import mock
-    return mock.patch.object(runner.update_graph, "refusal", lambda r, perm=None: "held off")
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(runner.update_graph, "refusal",
+                                              lambda r, perm=None: "held off"))
+        if hasattr(runner, "rollout_graph"):
+            stack.enter_context(mock.patch.object(runner.rollout_graph, "refusal",
+                                                  lambda r: "held off"))
+        yield
 
 
 def graph_against_eager(make, check, counts, delta, per_iter):
@@ -2855,6 +2949,13 @@ def main() -> int:
     print("TenAnt+PPO (kernel path):")
     ppo, _, (ppo_launches, box_launches) = ppo_phase(
         env, "TenAnt+PPO", 3, (per_iter, per_iter), 388, dev, twin=TenAntEnv(device=dev, seed=0))
+    # B1 and box launches: the host's (the trainer's eager and capturing
+    # rollouts) and the kernels of one of its replays, traced
+    _, (replay_b1, replay_box) = profile_rollout_replay(ppo, "TenAnt+PPO")
+    print(f"  TenAnt+PPO rollout replay traced: {replay_b1} B1, {replay_box} box kernels")
+    ppo_launches += replay_b1
+    box_launches += replay_box
+    rollout_graph_phase(dev)
 
     # ---- 5b. TenAnt + PPO on the array engine; one legacy step on the kernel
     print("TenAnt+PPO on the array engine (sim.fused_kernel false):")

@@ -926,7 +926,7 @@ class MarlRunner:
                     active=torch.ones(N, B, device=self.device))
         share = traj["share"].reshape(B, -1)
         if self.update_graph.refusal(self, perm) is None:
-            aloss, vloss = self.update_graph.update(self, data, share)
+            aloss, vloss = self.update_graph(self, data, share)
         else:
             self.update_graph.eager_updates += 1
             aloss, vloss = (self._sequential(data, share, perm) if self.sequential

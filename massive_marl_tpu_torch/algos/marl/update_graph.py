@@ -15,9 +15,10 @@ random numbers; the runner's own agent order.  Every other update runs the
 eager body: the CPU, the stacked schedule, a mesh, HAPPO and HATRPO, more
 minibatches, and RecurrentMarlRunner, whose update is its own.
 
-  * The first update that takes it runs eagerly: the warm-up capture needs
-    (kernel builds, cuBLAS handles, autograd, the caching allocator).  Its
-    results are the real update.
+  * The runner's first update runs eagerly, refused or not: the warm-up
+    capture needs (kernel builds, cuBLAS handles, autograd, the caching
+    allocator).  Its results are the real update.  This lifecycle is
+    algos/graphed.py's, shared with PPO's graphs.
   * The next one captures the body (`MarlRunner._sequential`) on a side
     stream into the graph's private memory pool; capture runs nothing, so
     the graph's first replay is that update.  Each later update copies its
@@ -54,9 +55,9 @@ import os
 
 import torch
 
+from massive_marl_tpu_torch.algos.graphed import GraphedBody
 from massive_marl_tpu_torch.ops import fused_mlp
 from massive_marl_tpu_torch.parallel.mesh import LOCAL
-from massive_marl_tpu_torch.utils.profiling import span
 from massive_marl_tpu_torch.utils.tree import tree_leaves
 
 # the kernel wrappers whose calls `UpdateGraph.calls` counts
@@ -73,19 +74,16 @@ def state_tensors(runner) -> list:
             + [st.vnorm.mean, st.vnorm.mean_sq, st.vnorm.debias])
 
 
-class UpdateGraph:
+class UpdateGraph(GraphedBody):
     """One runner's graph of its sequential fused update (see the module
-    doc); `update(runner, data, share)` stands for `runner._sequential`."""
-
-    def __init__(self):
-        self.captures = self.replays = self.eager_updates = 0
-        self.warm = False
-        self._drop()
+    doc); `update_graph(runner, data, share)` stands for
+    `runner._sequential`."""
+    EAGER = "eager_updates"
+    SPAN = "update.graph"
 
     def _drop(self):
-        self.graph = None
-        self.key = None
-        self.inputs = self.share = self.outputs = self.scalars = None
+        super()._drop()
+        self.inputs = self.share = self.scalars = None
         self.steps = None    # [optimizer][agent]: the steps one replay takes
         self.calls = None    # per KERNELS entry: the calls one replay makes
         self.base = None     # while capturing, [optimizer][agent]: the counts before
@@ -108,23 +106,9 @@ class UpdateGraph:
             return "an agent order given"
         return None
 
-    def update(self, runner, data, share):
-        """The update's (actor loss, value loss) means: the eager body the
-        first time, then the graph's replay."""
-        if not self.warm:
-            self.warm = True
-            self.eager_updates += 1
-            return runner._sequential(data, share, None)
-        key = self._key(runner, data, share)
-        if self.graph is not None and key != self.key:
-            self._drop()
-        if self.graph is None:
-            self._capture(runner, data, share)
-            self.key = key
-            self.captures += 1
-        else:
-            self.replays += 1
-        return self._replay(runner, data, share)
+    @staticmethod
+    def _eager(runner, data, share):
+        return runner._sequential(data, share, None)
 
     @staticmethod
     def _key(runner, data, share) -> tuple:
@@ -148,10 +132,8 @@ class UpdateGraph:
         self.scalars = torch.zeros((2, N, runner.cfg.ppo_epoch, 3), device=runner.device)
         self.base = [list(o.count) for o in opts]
         launches = [kernel.launches for kernel in KERNELS]
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
-                self.outputs = runner._sequential(self.inputs, self.share, None)
+            self._record(lambda: runner._sequential(self.inputs, self.share, None))
             self.steps = [[c - b for c, b in zip(o.count, before)]
                           for o, before in zip(opts, self.base)]
             self.calls = [kernel.launches - n for kernel, n in zip(KERNELS, launches)]
@@ -160,7 +142,6 @@ class UpdateGraph:
             for o, before in zip(opts, self.base):
                 o.count[:] = before
             self.base = None
-        self.graph = graph
 
     @staticmethod
     def schedule(runner, K: int) -> torch.Tensor:
@@ -173,15 +154,14 @@ class UpdateGraph:
                                            (runner.critic_tx, st.critic_opt))],
                             dtype=torch.float32)
 
-    def _replay(self, runner, data, share):
-        st = runner.state
+    def _feed(self, runner, data, share):
         table = self.schedule(runner, self.scalars.shape[2])
         for name, v in data.items():
             self.inputs[name].copy_(v)
         self.share.copy_(share)
         self.scalars.copy_(table.pin_memory(), non_blocking=True)
-        with span("update.graph"):
-            self.graph.replay()
+
+    def _advance(self, runner):
+        st = runner.state
         for o, steps in zip((st.actor_opt, st.critic_opt), self.steps):
             o.count[:] = [c + s for c, s in zip(o.count, steps)]
-        return tuple(t.clone() for t in self.outputs)

@@ -31,12 +31,16 @@ global.
 On CUDA the update runs as one CUDA graph (update_graph.py, held as
 `PPO.update_graph`): eagerly once, captured on the next update and replayed
 on every later one; the CPU, a mesh and a `_loss` or `_step` overridden on
-the instance keep it eager (`PPOUpdateGraph.refusal`).
+the instance keep it eager (`PPOUpdateGraph.refusal`).  So does the
+rollout (rollout_graph.py, `PPO.rollout_graph`), on an env whose step
+makes no read from the device on the host; the CPU, a mesh, domain
+randomization and a `step_batch` overridden on the env instance keep it
+eager (`PPORolloutGraph.refusal`).
 
 The rollout, its policy steps, the update and each minibatch step's
 forward, backward and optimizer are spans of utils/profiling (recorded
 only while its recorder is on); a replay of the update's graph is the span
-`update.graph`.
+`update.graph`, one of the rollout's `rollout.graph`.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ import torch
 
 from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.algos import nets
+from massive_marl_tpu_torch.algos.rl.rollout_graph import PPORolloutGraph
 from massive_marl_tpu_torch.algos.rl.update_graph import PPOUpdateGraph
 from massive_marl_tpu_torch.parallel.mesh import LOCAL, draw
 from massive_marl_tpu_torch.utils import bridge, checkpoint, msgpack_lite
@@ -228,6 +233,7 @@ class PPO:
         self.state: PPOTrainState | None = None
         self.last_metrics: Dict[str, float] = {}
         self.update_graph = PPOUpdateGraph()
+        self.rollout_graph = PPORolloutGraph()
 
     # ------------------------------------------------------------------ setup
     def init_state(self) -> PPOTrainState:
@@ -244,9 +250,18 @@ class PPO:
     @torch.no_grad()
     def rollout_phase(self) -> Dict[str, torch.Tensor]:
         """nsteps of policy + env; advances state.env_state and returns the
-        trajectory dict."""
+        trajectory dict.  On CUDA a replay of the rollout's graph
+        (rollout_graph.py) wherever it takes the rollout."""
+        if self.rollout_graph.refusal(self) is None:
+            return self.rollout_graph(self)
+        self.rollout_graph.eager_rollouts += 1
+        traj, self.state.env_state = self._rollout(self.state.env_state)
+        return traj
+
+    def _rollout(self, env_state):
+        """The rollout's body: nsteps of policy + env from env_state; returns
+        (the trajectory dict, the final env state)."""
         cfg = self.cfg
-        env_state = self.state.env_state
         steps = []
         for _ in range(cfg.nsteps):
             with span("trainer.policy"):
@@ -261,8 +276,7 @@ class PPO:
             steps.append(dict(obs=obs, actions=actions, logp=logp, value=value, mean=mean,
                               reward=env_state.reward,
                               done=env_state.done.to(torch.float32)))
-        self.state.env_state = env_state
-        return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+        return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}, env_state
 
     # ----------------------------------------------------------------- update
     def gae(self, traj, last_value):
@@ -318,7 +332,7 @@ class PPO:
         the iteration's metrics (device tensors).  On CUDA a replay of the
         update's graph (update_graph.py) wherever it takes the update."""
         if self.update_graph.refusal(self) is None:
-            metrics = self.update_graph.update(self, traj, last_obs)
+            metrics = self.update_graph(self, traj, last_obs)
         else:
             self.update_graph.eager_updates += 1
             metrics = self._update(traj, last_obs)

@@ -18,7 +18,8 @@ eager body: the CPU, a mesh, an overridden step.
 
   * The graph captures only after the trainer has run one update eagerly,
     refused or not: the warm-up capture needs (cuBLAS handles, autograd,
-    the caching allocator).  Its results are the real update.
+    the caching allocator).  Its results are the real update.  This
+    lifecycle is algos/graphed.py's, shared with the rollout's graph.
   * The next update captures the body (`PPO._update`) on a side stream into
     the graph's private memory pool; capture runs nothing, so the graph's
     first replay is that update.  Each later update copies its inputs (the
@@ -47,8 +48,8 @@ from __future__ import annotations
 
 import torch
 
+from massive_marl_tpu_torch.algos.graphed import GraphedBody
 from massive_marl_tpu_torch.parallel.mesh import LOCAL
-from massive_marl_tpu_torch.utils.profiling import span
 
 
 def state_tensors(trainer) -> list:
@@ -58,18 +59,15 @@ def state_tensors(trainer) -> list:
     return list(trainer.model.parameters()) + st.opt.mu + st.opt.nu + [st.lr]
 
 
-class PPOUpdateGraph:
+class PPOUpdateGraph(GraphedBody):
     """One trainer's graph of its update (see the module doc);
-    `update(trainer, traj, last_obs)` stands for `trainer._update`."""
-
-    def __init__(self):
-        self.captures = self.replays = self.eager_updates = 0
-        self._drop()
+    `update_graph(trainer, traj, last_obs)` stands for `trainer._update`."""
+    EAGER = "eager_updates"
+    SPAN = "update.graph"
 
     def _drop(self):
-        self.graph = None
-        self.key = None
-        self.inputs = self.last_obs = self.outputs = self.scalars = None
+        super()._drop()
+        self.inputs = self.last_obs = self.scalars = None
         self.steps = None    # the Adam steps one replay takes
         self.base = None     # while capturing: Adam's count before
 
@@ -86,22 +84,9 @@ class PPOUpdateGraph:
                 return f"{name} overridden on the trainer"
         return None
 
-    def update(self, trainer, traj, last_obs):
-        """The update's metrics: the eager body until an update has run
-        eagerly, then the graph's replay."""
-        if not self.eager_updates:
-            self.eager_updates += 1
-            return trainer._update(traj, last_obs)
-        key = self._key(trainer, traj, last_obs)
-        if self.graph is not None and key != self.key:
-            self._drop()
-        if self.graph is None:
-            self._capture(trainer, traj, last_obs)
-            self.key = key
-            self.captures += 1
-        else:
-            self.replays += 1
-        return self._replay(trainer, traj, last_obs)
+    @staticmethod
+    def _eager(trainer, traj, last_obs):
+        return trainer._update(traj, last_obs)
 
     @staticmethod
     def _key(trainer, traj, last_obs) -> tuple:
@@ -124,16 +109,13 @@ class PPOUpdateGraph:
         self.last_obs = last_obs.clone()
         self.scalars = torch.zeros((cfg.noptepochs * cfg.nminibatches, 2), device=trainer.device)
         self.base = opt.count
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
-                self.outputs = trainer._update(self.inputs, self.last_obs)
+            self._record(lambda: trainer._update(self.inputs, self.last_obs))
             self.steps = opt.count - self.base
         finally:
             # the capture took no step; the replay that follows takes them
             opt.count = self.base
             self.base = None
-        self.graph = graph
 
     @staticmethod
     def schedule(count: int, K: int) -> torch.Tensor:
@@ -142,14 +124,12 @@ class PPOUpdateGraph:
         from massive_marl_tpu_torch.algos.rl.ppo import adam_scalars  # ppo imports this module
         return torch.tensor([adam_scalars(count + k) for k in range(K)], dtype=torch.float32)
 
-    def _replay(self, trainer, traj, last_obs):
-        opt = trainer.state.opt
-        table = self.schedule(opt.count, self.scalars.shape[0])
+    def _feed(self, trainer, traj, last_obs):
+        table = self.schedule(trainer.state.opt.count, self.scalars.shape[0])
         for name, v in traj.items():
             self.inputs[name].copy_(v)
         self.last_obs.copy_(last_obs)
         self.scalars.copy_(table.pin_memory(), non_blocking=True)
-        with span("update.graph"):
-            self.graph.replay()
-        opt.count += self.steps
-        return {k: v.clone() for k, v in self.outputs.items()}
+
+    def _advance(self, trainer):
+        trainer.state.opt.count += self.steps

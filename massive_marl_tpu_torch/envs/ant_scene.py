@@ -26,6 +26,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from massive_marl_tpu_torch.envs.obs_math import constant
 from massive_marl_tpu_torch.parallel.mesh import draw
 from massive_marl_tpu_torch.phys import dr as dr_mod
 from massive_marl_tpu_torch.phys import engine
@@ -163,7 +164,7 @@ def reset_scene(spec: AntSceneSpec, generator: torch.Generator, num_envs: int,
     dpos = u[0] * (2 * pos_noise) - pos_noise
     dvel = u[1] * (2 * vel_noise) - vel_noise
     hinge = torch.clamp(init_hinge + dpos, sys.jnt_range[:, 0], sys.jnt_range[:, 1])
-    quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    quat = constant((0.0, 0.0, 0.0, 1.0), dev)
     qpos = torch.cat([ant_start.expand(E, A, 3), quat.expand(E, A, 4),
                       hinge[:, None, :].expand(E, A, nj)], dim=-1)
     qvel = torch.zeros((E, A, sys.nv), device=dev)
@@ -171,7 +172,7 @@ def reset_scene(spec: AntSceneSpec, generator: torch.Generator, num_envs: int,
     if box_start is not None:
         box_qpos = torch.cat([box_start, quat]).expand(E, 7).clone()
     else:
-        box_qpos = quat.new_tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0]).expand(E, 7).clone()
+        box_qpos = constant((0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0), dev).expand(E, 7).clone()
     zeros_i = torch.zeros(E, dtype=torch.int32, device=dev)
     dr, corr_act, corr_obs = (), (), ()
     if spec.dr_spec is not None:

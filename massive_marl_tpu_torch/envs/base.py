@@ -55,6 +55,13 @@ def finish_step(env, stepped, actions: torch.Tensor, state: EnvState) -> EnvStat
                     progress=progress, done=done, obs=obs, reward=reward)
 
 
+device_only_step = property(lambda env: env.use_fused, doc="""Whether an ant
+task's step_batch makes no read from the device on the host (no sync, no
+blocking copy, no branch on a device value), so that a CUDA graph can hold
+it (algos/rl/rollout_graph.py): the fused substep path.  The array engine's
+step is not held to it.""")
+
+
 def configure_dr(env, cfg) -> dict | None:
     """Set an ant task's domain-randomization attributes from its cfg
     (task.randomize, task.randomization_params): randomize, dr_frequency

@@ -2,6 +2,7 @@
 massive_marl_tpu/envs/obs_math.py), batched over leading axes."""
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -21,14 +22,22 @@ class BodyFrameObs(NamedTuple):
     angle_to_target: torch.Tensor
 
 
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, device: torch.device, dtype: torch.dtype = torch.float32):
+    """The vector `values` on `device`, copied from the host once and shared
+    by every later call (read-only): a copy from the host blocks the host,
+    and a CUDA graph cannot hold one."""
+    return torch.tensor(values, device=device, dtype=dtype)
+
+
 def heading_and_rot(torso_pos, torso_quat, velocity, ang_velocity, targets) -> BodyFrameObs:
     """compute_heading_and_up + compute_rot of the original benchmark (the
     start rotation is identity, so torso_quat is the raw rotation)."""
     to_target = targets - torso_pos
     to_target = torch.cat([to_target[..., :2], torch.zeros_like(to_target[..., 2:])], dim=-1)
     target_dir = normalize(to_target)
-    ez = torso_pos.new_tensor([0.0, 0.0, 1.0])
-    ex = torso_pos.new_tensor([1.0, 0.0, 0.0])
+    ez = constant((0.0, 0.0, 1.0), torso_pos.device, torso_pos.dtype)
+    ex = constant((1.0, 0.0, 0.0), torso_pos.device, torso_pos.dtype)
     up_proj = quat_rotate(torso_quat, ez)[..., 2]
     heading_proj = torch.sum(quat_rotate(torso_quat, ex) * target_dir, dim=-1)
     vel_loc = quat_rotate_inverse(torso_quat, velocity)

@@ -36,7 +36,8 @@ from massive_marl_tpu_torch import resolve_device
 from massive_marl_tpu_torch.envs import obs_math
 from massive_marl_tpu_torch.envs.ant_scene import (AntSceneSpec, AntSceneState, reset_scene,
                                                    scene_step)
-from massive_marl_tpu_torch.envs.base import EnvState, configure_dr, dr_reset, finish_step
+from massive_marl_tpu_torch.envs.base import (EnvState, configure_dr, device_only_step, dr_reset,
+                                              finish_step)
 from massive_marl_tpu_torch.ops import fused_substep
 from massive_marl_tpu_torch.phys import mjcf
 from massive_marl_tpu_torch.phys.engine import ContactParams
@@ -162,6 +163,7 @@ class TenAntEnv:
 
     _finish_step = finish_step
     _dr_reset = dr_reset
+    device_only_step = device_only_step
 
     def _reward(self, obs, actions, pipeline: AntSceneState, carry: TenAntCarry, progress):
         """Shared team reward and done flags, [E] each."""

@@ -103,7 +103,7 @@ def test_updates_on_the_cpu_run_eagerly(case):
         m = runner.update_phase(traj, runner.state.env_state.obs, perm=_perm(case, runner))
         assert torch.isfinite(m["value_loss"]) and torch.isfinite(m["policy_loss"])
     g = runner.update_graph
-    assert (g.eager_updates, g.captures, g.replays, g.warm, g.graph) == (2, 0, 0, False, None)
+    assert (g.eager_updates, g.captures, g.replays, g.graph) == (2, 0, 0, None)
 
 
 def _python_float_step(tx, params, grads, mu, nu, count):
