@@ -12,17 +12,22 @@ per-layer metric sits in a file of its own that the harness finds by name:
                            iterations, follows them with the plain reference
                            and counts an iteration's work;
   metrics/<metric>.py      read(r) -> the metric's value, or None where the
-                           run has nothing to read for it.
+                           run has nothing to read for it; a metric timed by
+                           a synced span of the harness names the call in
+                           WRAPS.
 
 BENCHMARK.json at the checkout's root says which metrics a cell reports.
 
 A run: build the trainer from the seed, drive its warm-up iterations (the
 first of them checked; every shape of the window is used in them), then the
 window, whole iterations of train_iter and the metrics' fetch until
-`seconds` have passed.  A traced run times the layers on the host clock in
-its window, then profiles a few more iterations.  After the window the
-port's state is freed and the plain reference follows the checked
-iterations from the same inputs; `correct` is the comparison's verdict.
+`seconds` have passed.  A traced run turns the program's own spans on
+(`utils/profiling`), times the calls its metrics' WRAPS name on the host
+clock in its window, then profiles a few more iterations with no wrapper
+installed, so they run what the untraced window runs (PPO's rollout graph
+refuses an env whose step_batch is wrapped).  After the window the port's
+state is freed and the plain reference follows the checked iterations from
+the same inputs; `correct` is the comparison's verdict.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import sys
 import time
 import traceback
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from port_bench import window
 
@@ -105,39 +110,36 @@ def power_limit() -> str:
 class Spans:
     """Host-clock spans around calls into the layers, installed on the
     program's objects as instance attributes (the program is not edited).
-    With `sync` each span synchronizes the device before and after, so its
-    time is the layer's whole time; without, it only annotates the
-    profiler's trace."""
+    Each span synchronizes the device before and after, so its time is the
+    layer's whole time.  An instance attribute can change what runs: PPO's
+    rollout graph refuses an env whose step_batch is overridden."""
 
     def __init__(self):
         self.times: Dict[str, List[float]] = {}
         self._installed = []
 
-    def wrap(self, obj, attr: str, name: str, sync: bool):
+    def wrap(self, obj, attr: str, name: str):
         import torch
-        from torch.profiler import record_function
         orig = getattr(obj, attr)
         times = self.times.setdefault(name, [])
-        cuda = torch.cuda.is_available()
+        sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
 
         def spanned(*args, **kw):
-            with record_function(SPAN_PREFIX + name):
-                if sync and cuda:
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = orig(*args, **kw)
-                if sync and cuda:
-                    torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
+            sync()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            sync()
+            times.append(time.perf_counter() - t0)
             return out
 
         setattr(obj, attr, spanned)
         self._installed.append((obj, attr))
 
-    def install(self, trainer, env, sync: bool):
-        self.wrap(trainer, "rollout_phase", "trainer.rollout", sync)
-        self.wrap(trainer, "update_phase", "trainer.update", sync)
-        self.wrap(env, "step_batch", "env.step", sync)
+    def install(self, built, wraps):
+        """Wrap each (object, method, span name) of `wraps`; the object is
+        an attribute of `built` (`trainer`, `env`)."""
+        for obj, attr, name in wraps:
+            self.wrap(getattr(built, obj), attr, name)
 
     def remove(self):
         for obj, attr in self._installed:
@@ -154,6 +156,18 @@ class Readings:
     iter_s: List[float]              # the window's iteration wall times
     spans: Dict[str, List[float]] = field(default_factory=dict)
     trace: Optional[object] = None   # trace.Trace of the profiled iterations
+    # the program's spans over the window: {name: (calls, total s, self s)}
+    program: Dict[str, Tuple[int, float, float]] = field(default_factory=dict)
+
+
+def program_summary(program: Dict[str, Tuple[int, float, float]], iterations: int) -> str:
+    """The program's spans over the window, per window iteration, as text."""
+    lines = [f"the program's spans (host clock, unsynced), per window iteration of "
+             f"{iterations}:", f"{'total':>12}  {'self':>12}  {'calls':>8}"]
+    for name, (n, total, own) in sorted(program.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"{1e3 * total / iterations:9.3f} ms  {1e3 * own / iterations:9.3f} ms  "
+                     f"{n / iterations:8.2f}  {name}")
+    return "\n".join(lines) + "\n"
 
 
 def run_cell(name: str, seed: int, seconds: float, traced: bool, t_start: float,
@@ -162,6 +176,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t_start: float,
     is the process's start on the host clock (time.perf_counter).  bench,
     cell and config default to the files (tests pass small ones)."""
     import torch
+
+    from massive_marl_tpu_torch.utils import profiling
 
     err = err or sys.stderr
     bench = bench or benchmark()
@@ -182,10 +198,14 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t_start: float,
     sync()
     setup_s = time.perf_counter() - t_start
 
-    # ---- the window
+    # ---- the window; a traced run has the program's spans on from here to the
+    # profiled iterations' end
     spans = Spans()
     if traced:
-        spans.install(built.trainer, built.env, sync=True)
+        readers = {m["name"]: reader(m["name"]) for m in metrics_of(bench, name, "per_layer")}
+        spans.install(built, [r.WRAPS for r in readers.values() if hasattr(r, "WRAPS")])
+        profiling.reset()
+        profiling.enable()
     iter_s, attempted, failed = [], 0, 0
     t0 = t_end = time.perf_counter()
     while True:
@@ -205,6 +225,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t_start: float,
             break
     window_s = t_end - t0
     spans.remove()
+    program = profiling.totals() if traced else {}
     if iter_s:
         q = max(1, len(iter_s) // 4)
         parts = [iter_s[k:k + q] for k in range(0, len(iter_s), q)]
@@ -212,21 +233,22 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t_start: float,
             f"{1e3 * sum(p) / len(p):.1f}" for p in parts), file=err)
 
     trace = None
-    if traced and cuda and not failed:
-        from port_bench import trace as trace_mod
-        annotate = Spans()       # names the profiled iterations' host work, no syncs
-        annotate.install(built.trainer, built.env, sync=False)
-        try:
+    try:
+        if traced and cuda and not failed:
+            from port_bench import trace as trace_mod
             trace = trace_mod.profile_iterations(lambda: mod.iterate(built),
-                                                 cell["trace_iterations"], SPAN_PREFIX)
-        finally:
-            annotate.remove()
-        print(f"trace: {trace.iterations} iterations, {trace.launches} launches, "
-              f"busy {trace.busy_s:.6f} of {trace.window_s:.6f} s, read in "
-              f"{trace.read_s:.1f} s", file=err)
-        os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
-        with open(os.path.join(HERE, "out", f"{name}.{seed}.trace.txt"), "w") as fh:
-            fh.write(trace.summary())
+                                                 cell["trace_iterations"],
+                                                 (SPAN_PREFIX, profiling.PREFIX))
+            print(f"trace: {trace.iterations} iterations, {trace.launches} launches, "
+                  f"busy {trace.busy_s:.6f} of {trace.window_s:.6f} s, "
+                  f"{trace.unattributed_s:.6f} of {trace.device_s:.6f} s of device time "
+                  f"unattributed, read in {trace.read_s:.1f} s", file=err)
+            os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
+            with open(os.path.join(HERE, "out", f"{name}.{seed}.trace.txt"), "w") as fh:
+                fh.write(trace.summary())
+                fh.write(program_summary(program, len(iter_s)))
+    finally:
+        profiling.disable()
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     found = banned_modules()
     if found:
@@ -257,9 +279,9 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, t_start: float,
             metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
     elif traced and iter_s:
         r = Readings(cell=cell, config=config, work=mod.counted_work(config, cell),
-                     iter_s=iter_s, spans=spans.times, trace=trace)
+                     iter_s=iter_s, spans=spans.times, trace=trace, program=program)
         for m in metrics_of(bench, name, "per_layer"):
-            v = reader(m["name"]).read(r)
+            v = readers[m["name"]].read(r)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
 

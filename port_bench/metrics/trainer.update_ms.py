@@ -1,7 +1,9 @@
 """Mean host-clock time of the trainer's update phase (GAE and every
-minibatch step) per window iteration, each span ended by the device's
-sync."""
+minibatch step, or the replay of their graph) per window iteration, each
+span ended by the device's sync."""
 import statistics
+
+WRAPS = ("trainer", "update_phase", "trainer.update")
 
 
 def read(r):

@@ -37,9 +37,36 @@ def test_a_sound_run_is_correct_and_reports_its_metrics(tiny_cell):
 def test_a_traced_run_reports_the_host_clock_layers(tiny_cell):
     line = _run(*tiny_cell, traced=True)
     assert line["correct"] is True
-    # the device trace's metrics have nothing to read on the CPU
-    assert set(line["metrics"]) == {"trainer.rollout_ms", "trainer.update_ms", "env.step_ms",
-                                    "mfu"}
+    # the device trace's metrics have nothing to read on the CPU, and no PPO
+    # cell lists env.step_ms (its wrapper on the env refuses the rollout graph)
+    assert set(line["metrics"]) == {"trainer.rollout_ms", "trainer.update_ms", "mfu"}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_the_program_spans_are_off_after_a_run_and_never_on_untraced(monkeypatch, tiny_cell,
+                                                                     traced):
+    from massive_marl_tpu_torch.utils import profiling
+    seen = []
+    monkeypatch.setattr(profiling, "enable", lambda: seen.append(True) or
+                        setattr(profiling.RECORDER, "on", True))
+    line = _run(*tiny_cell, traced=traced)
+    assert line["correct"] is True
+    assert profiling.RECORDER.on is False
+    assert bool(seen) is traced
+
+
+def test_a_traced_run_installs_no_wrapper_on_the_env(monkeypatch, tiny_cell):
+    """A traced PPO run leaves the env's step_batch alone, so on the card
+    the rollout graph takes the rollout as in the untraced window."""
+    from massive_marl_tpu_torch.envs.ten_ant import TenAntEnv
+    step, wrapped = TenAntEnv.step_batch, []
+
+    def spied(self, *args, **kw):
+        wrapped.append("step_batch" in vars(self))
+        return step(self, *args, **kw)
+    monkeypatch.setattr(TenAntEnv, "step_batch", spied)
+    _run(*tiny_cell, traced=True)
+    assert wrapped and not any(wrapped)
 
 
 def _break(monkeypatch, fault):
